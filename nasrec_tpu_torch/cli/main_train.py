@@ -1,7 +1,7 @@
 """Fixed-subnet training CLI (port of `nasrec_tpu/cli/main_train.py`).
 
 Example (on the card; add --device cpu to run on the CPU):
-  python -m nasrec_tpu_torch.cli.main_train --arch criteo-kaggle/autoctr \
+  python -m nasrec_tpu_torch.cli.main_train --arch criteo-kaggle/xlarge \
       --data_source synthetic --max_train_steps 50 \
       --train_batch_size 2048 --test_batch_size 4096
 """

@@ -135,6 +135,40 @@ def build_fixed_plan(
     )
 
 
+# Which of a block's inputs each node type reads.
+_READS_DENSE = ("linear-2d", "zeros-2d", "dot-product")
+_READS_SPARSE = ("dot-product", "transformer", "linear-3d", "zeros-3d")
+_READS_SIDES = ("sum", "sigmoid-gating")
+
+
+def _block_reads(plan: FixedPlan, bp: BlockPlan) -> Tuple[bool, bool, bool]:
+    """(dense, sparse, left/right): which inputs the block's nodes read."""
+    names = [plan.space.node_names[k] for k in bp.active_nodes]
+    return tuple(any(n in kind for n in names)
+                 for kind in (_READS_DENSE, _READS_SPARSE, _READS_SIDES))
+
+
+def live_blocks(plan: FixedPlan) -> Tuple[bool, ...]:
+    """Which blocks the logits depend on.  A searched arch may hold blocks
+    whose outputs neither a later live block nor the head reads (blocks 3-5 of
+    criteo-kaggle/xlarge).  The JAX package traces them and XLA removes them
+    from the compiled step; this eager port skips them itself, forward and
+    backward.  Their parameters stay in the model with zero gradients."""
+    n = plan.num_blocks
+    live = [False] * (n + 1)            # virtual index 0: the model's inputs
+    for v in range(n, n - plan.last_n_blocks_out, -1):
+        live[v] = True
+    for v in range(n, 0, -1):
+        if not live[v]:
+            continue
+        bp = plan.blocks[v - 1]
+        dense, sparse, sides = _block_reads(plan, bp)
+        for j in ((bp.dense_idx if dense else ()) + (bp.sparse_idx if sparse else ())
+                  + (bp.left_idx + bp.right_idx if sides else ())):
+            live[j] = True
+    return tuple(live[1:])
+
+
 def _make_node(plan: FixedPlan, bp: BlockPlan, name: str, gen, device) -> nn.Module:
     uln = plan.use_layernorm
     if name == "linear-2d":
@@ -194,7 +228,7 @@ class FixedBlock(nn.Module):
             elif name == "dot-product":
                 dense_outs.append(node(dense_in, sparse_in, bp.sparse_in, e, impl))
             elif name == "transformer":
-                sparse_outs.append(node(sparse_in, e))
+                sparse_outs.append(node(sparse_in, e, impl=impl))
             elif name == "linear-3d":
                 sparse_outs.append(node(sparse_in, e, self.activation))
             elif name == "zeros-3d":
@@ -232,6 +266,8 @@ class FixedModel(nn.Module):
             FixedBlock(plan, bp, generator, device) for bp in plan.blocks
         )
         self.final = Linear(plan.head_width, 1, True, generator, device)
+        self.live = live_blocks(plan)
+        self.reads = tuple(_block_reads(plan, bp) for bp in plan.blocks)
 
     def forward_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
                          impl: str = "auto") -> torch.Tensor:
@@ -239,10 +275,17 @@ class FixedModel(nn.Module):
         plan = self.plan
         dense_list = [dense_x]
         sparse_list = [stem]
-        for bp, block in zip(plan.blocks, self.blocks):
+        for bp, block, live, (dense, sparse, sides) in zip(
+                plan.blocks, self.blocks, self.live, self.reads):
+            if not live:                 # nothing downstream reads this block
+                dense_list.append(None)
+                sparse_list.append(None)
+                continue
             dense_out, sparse_out = block(
-                _concat(dense_list, bp.dense_idx), _concat(sparse_list, bp.sparse_idx),
-                _concat(dense_list, bp.left_idx), _concat(dense_list, bp.right_idx),
+                _concat(dense_list, bp.dense_idx) if dense else None,
+                _concat(sparse_list, bp.sparse_idx) if sparse else None,
+                _concat(dense_list, bp.left_idx) if sides else None,
+                _concat(dense_list, bp.right_idx) if sides else None,
                 impl,
             )
             dense_list.append(dense_out)

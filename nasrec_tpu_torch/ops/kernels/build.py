@@ -3,8 +3,8 @@ at first use, and bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 `sm_90a` into `nasrec_tpu_torch/_build/lib<name>-<hash>.so`, where the hash
-covers the source and the flags, so an edited source never loads a stale
-library.  Nothing is built when a module is imported: `load_library` builds
+covers the source, the headers of `csrc/` (any source may include them) and
+the flags, so an edited source or header never loads a stale library.  Nothing is built when a module is imported: `load_library` builds
 on the first launch, and `build_all` builds every kernel at once (one `nvcc`
 process per source, all started together).
 
@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("dotprod", "table_update")
+KERNEL_SOURCES = ("dotprod", "table_update", "attention", "transformer_body")
 
 _c_ptr, _c_ll, _c_int, _c_float = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
@@ -50,6 +50,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "table_update": {
         "nasrec_table_update": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
                                 _c_float, _c_float, _c_ptr),
+    },
+    "attention": {
+        "nasrec_attn_fwd": (_c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_ptr),
+        "nasrec_attn_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_ptr),
+    },
+    "transformer_body": {
+        "nasrec_body_fwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int,
+                            _c_int, _c_float, _c_ptr),
+        "nasrec_body_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                            _c_ll, _c_int, _c_int, _c_int, _c_float, _c_ptr),
     },
 }
 
@@ -66,9 +76,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
@@ -84,7 +95,8 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
+               str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

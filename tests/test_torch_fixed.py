@@ -69,3 +69,28 @@ def test_fixed_apply_logits_match_jax(dataset, space):
         got = fixed_apply(model, torch.from_numpy(dense), torch.from_numpy(cat)).numpy()
     assert got.shape == want.shape == (b, 1)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_blocks_nothing_reads_are_skipped():
+    """criteo-kaggle/xlarge: block 6 reads blocks 0-2 only and the head reads
+    block 6, so blocks 3-5 (one of them a transformer node) never run; the
+    logits above are the JAX package's all the same."""
+    from nasrec_tpu_torch.models.fixed import live_blocks
+
+    spec = DATASETS["criteo-kaggle"]
+    _, _, tplan = _plans("criteo-kaggle", "xlarge", (VOCAB_CAP,) * spec.num_sparse)
+    assert live_blocks(tplan) == (True, True, True, False, False, False, True)
+    _, _, aplan = _plans("kdd", "autoctr", (VOCAB_CAP,) * DATASETS["kdd"].num_sparse)
+    assert all(live_blocks(aplan))
+
+    model = fixed_init(tplan, seed=0, device="cpu")
+    ran = []
+    for i, block in enumerate(model.blocks):
+        block.register_forward_hook(lambda *_, i=i: ran.append(i))
+    rng = np.random.RandomState(0)
+    dense = torch.from_numpy(rng.randn(4, spec.num_dense).astype(np.float32))
+    cat = torch.from_numpy(rng.randint(0, VOCAB_CAP, size=(4, spec.num_sparse)).astype(np.int32))
+    fixed_apply(model, dense, cat).sum().backward()
+    assert ran == [0, 1, 2, 6]
+    assert all(p.grad is not None for b in (0, 1, 2, 6) for p in model.blocks[b].parameters())
+    assert all(p.grad is None for b in (3, 4, 5) for p in model.blocks[b].parameters())

@@ -22,6 +22,39 @@ def test_no_jax_or_jax_package_import(path):
     assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
+def test_every_kernel_source_is_walked_and_bound():
+    """Each CUDA source has a wrapper module among the walked files, a C
+    signature table in build.py, and includes nothing of PyTorch (a plain C
+    interface builds in seconds; PyTorch's headers take minutes)."""
+    from nasrec_tpu_torch.ops.kernels import build
+
+    sources = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
+    assert sources == sorted(build.KERNEL_SOURCES) == sorted(build.SIGNATURES)
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in sources:
+        assert f"nasrec_tpu_torch/ops/kernels/{name}.py" in walked, name
+    for path in [*build.CSRC_DIR.glob("*.cu"), *build.CSRC_DIR.glob("*.cuh")]:
+        text = path.read_text()
+        assert "torch/" not in text and "ATen" not in text, path.name
+        for fn in build.SIGNATURES.get(path.stem, {}):
+            assert f'extern "C" int {fn}(' in text, fn
+
+
+def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ must change every library's file name, or
+    a stale build would be loaded."""
+    from nasrec_tpu_torch.ops.kernels import build
+
+    before = {n: build.library_path(n).name for n in build.KERNEL_SOURCES}
+    for src in build.CSRC_DIR.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    header = next(iter(sorted(tmp_path.glob("*.cuh"))))
+    header.write_text(header.read_text() + "\n// edited\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    after = {n: build.library_path(n).name for n in build.KERNEL_SOURCES}
+    assert all(before[n] != after[n] for n in before)
+
+
 def test_pattern_catches_banned_and_spares_port():
     assert BANNED.search("import jax.numpy as jnp")
     assert BANNED.search("from nasrec_tpu.ops import x")

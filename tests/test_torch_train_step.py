@@ -1,7 +1,9 @@
-"""Two sparse-embedding train steps of the criteo-kaggle/autoctr subnet in the
-port against the JAX step (table_update="scatter", attention_impl="xla"),
-from the same transplanted weights on the same batches; then one run of the
-port's fixed-subnet workload through its CLI on the CPU.
+"""Two sparse-embedding train steps of the criteo-kaggle/autoctr and
+criteo-kaggle/xlarge subnets in the port against the JAX step
+(table_update="scatter"; attention_impl="xla" for autoctr, which has no
+transformer node, and "pallas" in interpret mode for xlarge), from the same
+transplanted weights on the same batches; then runs of the port's
+fixed-subnet workload through its CLI on the CPU.
 
 Tolerance (f32, after train steps): rtol 1e-4 / atol 1e-5 on the losses,
 logits, parameters, embedding table and Adagrad accumulators.
@@ -43,18 +45,22 @@ torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("clip", [5.0, 0.05])   # 0.05: the clip scales every step
-def test_two_sparse_steps_match_jax(clip):
+# clip 0.05: the clip scales every step.  The xlarge arch runs the JAX fused
+# transformer body, whose backward needs a batch that its lane tile divides.
+@pytest.mark.parametrize("space,clip,b", [("autoctr", 5.0, 64), ("autoctr", 0.05, 64),
+                                          ("xlarge", 5.0, 128)],
+                         ids=["5.0", "0.05", "xlarge-5.0"])
+def test_two_sparse_steps_match_jax(space, clip, b):
     spec = DATASETS["criteo-kaggle"]
     vocab = tuple(min(v, 50) for v in spec.raw_vocab_sizes)   # heavy duplicates
-    jplan = jax_build_plan(jax_best_arch("criteo-kaggle", "autoctr"), JAX_OPS["autoctr"],
-                           7, 13, 26, vocab, attention_impl="xla")
-    tplan = build_fixed_plan(get_best_arch("criteo-kaggle", "autoctr"),
-                             OPS_CONFIG_LIB["autoctr"], 7, 13, 26, vocab)
+    jplan = jax_build_plan(jax_best_arch("criteo-kaggle", space), JAX_OPS[space],
+                           7, 13, 26, vocab,
+                           attention_impl="xla" if space == "autoctr" else "pallas")
+    tplan = build_fixed_plan(get_best_arch("criteo-kaggle", space),
+                             OPS_CONFIG_LIB[space], 7, 13, 26, vocab)
     params = jax.device_get(jax_fixed_init(jax.random.PRNGKey(3), jplan))
 
     rng = np.random.RandomState(0)
-    b = 64
     batches = [(rng.randn(b, 13).astype(np.float32),
                 np.stack([rng.randint(0, v, size=b) for v in vocab], 1).astype(np.int32),
                 rng.randint(0, 2, size=(b, 1)).astype(np.float32)) for _ in range(2)]
@@ -90,9 +96,9 @@ def test_two_sparse_steps_match_jax(clip):
                                    err_msg=name, **TOL)
 
 
-def test_train_fixed_subnet_cli_on_cpu(tmp_path):
+def _run_cli_on_cpu(arch, tmp_path):
     out = main_train.main([
-        "--arch", "criteo-kaggle/autoctr", "--data_source", "synthetic",
+        "--arch", arch, "--data_source", "synthetic",
         "--device", "cpu", "--max_train_steps", "3", "--max_eval_steps", "1",
         "--train_batch_size", "64", "--test_batch_size", "128",
         "--display_interval", "1", "--test_interval", "3",
@@ -109,6 +115,17 @@ def test_train_fixed_subnet_cli_on_cpu(tmp_path):
     assert ckpt["step"] == 3
     assert torch.equal(ckpt["params"]["embedding.table"],
                        out["state"].model.embedding.table.detach())
+    return out
+
+
+def test_train_fixed_subnet_cli_on_cpu(tmp_path):
+    _run_cli_on_cpu("criteo-kaggle/autoctr", tmp_path)
+
+
+def test_train_fixed_subnet_cli_on_cpu_xlarge(tmp_path):
+    out = _run_cli_on_cpu("criteo-kaggle/xlarge", tmp_path)
+    nodes = [m for m in out["state"].model.modules() if type(m).__name__ == "Transformer"]
+    assert len(nodes) == 3 and all(n.fused for n in nodes)
 
 
 def test_unported_branches_raise():
