@@ -13,7 +13,8 @@
 // 72 S flops and 8 S exponentials, which at S = 64 is far above the card's
 // flop/byte balance for f32 outside the tensor cores.  Design: one thread per
 // (batch row, slot) position, a block per tile of whole batch rows, the row's
-// keys and values in shared memory; the arithmetic is in tiny_attn.cuh.
+// keys and values in shared memory; the arithmetic, folded to two FFMA and one
+// ex2 a probability, is in tiny_attn.cuh.
 
 #include "tiny_attn.cuh"
 
@@ -22,10 +23,12 @@ namespace {
 using namespace tiny_attn;
 
 constexpr int kMaxBlocks = 132 * 16;
+constexpr int kMaxThreads = 128;         // positions of one tile, at most
+constexpr int kRec = kMaxThreads * kLd;  // floats of one record array
 constexpr size_t kFwdSmem = 2 * kRec * sizeof(float);
-constexpr size_t kBwdSmem = 6 * kRec * sizeof(float);
+constexpr size_t kBwdSmem = 5 * kRec * sizeof(float);
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 4)
 attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                 long long batch, int S, int rpt) {
   extern __shared__ __align__(16) float smem[];
@@ -45,7 +48,7 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
       float tmp[kE];
       load16(src, qs);
 #pragma unroll
-      for (int e = 0; e < kE; ++e) qs[e] *= kScale;
+      for (int e = 0; e < kE; ++e) qs[e] *= kQScale;
       load16(src + kE, tmp);
       store16(sk + t * kLd, tmp);
       load16(src + 2 * kE, tmp);
@@ -53,8 +56,8 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
     }
     __syncthreads();
     if (active) {
-      float ov[kE], m[kH], iden[kH];
-      attn_fwd(qs, sk + r * S * kLd, sv + r * S * kLd, S, ov, m, iden);
+      float ov[kE], lse2[kH];
+      attn_fwd(qs, sk + r * S * kLd, sv + r * S * kLd, S, ov, lse2);
       store16(o + pos * kE, ov);
     }
     __syncthreads();
@@ -69,8 +72,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
   float* sk = smem + kRec;
   float* sv = smem + 2 * kRec;
   float* sdo = smem + 3 * kRec;
-  float* sst = smem + 4 * kRec;
-  float* sds = smem + 5 * kRec;
+  float* srec = smem + 4 * kRec;
   const int t = threadIdx.x;
   const int r = t / S;
   const int row0 = r * S * kLd;
@@ -86,7 +88,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
       float tmp[kE];
       load16(src, qs);
 #pragma unroll
-      for (int e = 0; e < kE; ++e) qs[e] *= kScale;
+      for (int e = 0; e < kE; ++e) qs[e] *= kQScale;
       store16(sq + t * kLd, qs);
       load16(src + kE, tmp);
       store16(sk + t * kLd, tmp);
@@ -96,31 +98,23 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
       store16(sdo + t * kLd, dov);
     }
     __syncthreads();
-    float m[kH], iden[kH], dsum[kH];
+    float rec[kE];
     if (active) {
-      float ov[kE], st[kE];
-      attn_fwd(qs, sk + row0, sv + row0, S, ov, m, iden);
-      attn_row_term(dov, ov, dsum);
-#pragma unroll
-      for (int h = 0; h < kH; ++h) {
-        st[h] = m[h];
-        st[kH + h] = iden[h];
-      }
-      store16(sst + t * kLd, st);
-      float4* d4 = reinterpret_cast<float4*>(sds + t * kLd);
-      d4[0] = make_float4(dsum[0], dsum[1], dsum[2], dsum[3]);
-      d4[1] = make_float4(dsum[4], dsum[5], dsum[6], dsum[7]);
+      float ov[kE], lse2[kH];
+      attn_fwd(qs, sk + row0, sv + row0, S, ov, lse2);
+      attn_row_record(dov, ov, lse2, rec);
+      store16(srec + t * kLd, rec);
     }
     __syncthreads();
     if (active) {
       float* dst = dqkv + pos * (3 * kE);
       float dq[kE];
-      attn_bwd_dq(qs, dov, m, iden, dsum, sk + row0, sv + row0, S, dq);
+      attn_bwd_dq(qs, dov, rec, sk + row0, sv + row0, S, dq);
       store16(dst, dq);
       float kj[kE], vj[kE], dk[kE], dv[kE];
       load16(sk + t * kLd, kj);
       load16(sv + t * kLd, vj);
-      attn_bwd_dkv(kj, vj, sq + row0, sdo + row0, sst + row0, sds + row0, S, dk, dv);
+      attn_bwd_dkv(kj, vj, sq + row0, sdo + row0, srec + row0, S, dk, dv);
       store16(dst + kE, dk);
       store16(dst + 2 * kE, dv);
     }
@@ -137,7 +131,7 @@ int grid_for(long long batch, int rpt) {
 
 extern "C" int nasrec_attn_fwd(const float* qkv, float* o, long long batch, int S,
                                int rpt, int threads, void* stream) {
-  if (bad_tile(S, rpt, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   attn_fwd_kernel<<<grid_for(batch, rpt), threads, kFwdSmem,
                     static_cast<cudaStream_t>(stream)>>>(qkv, o, batch, S, rpt);
@@ -147,7 +141,7 @@ extern "C" int nasrec_attn_fwd(const float* qkv, float* o, long long batch, int 
 extern "C" int nasrec_attn_bwd(const float* qkv, const float* dout, float* dqkv,
                                long long batch, int S, int rpt, int threads,
                                void* stream) {
-  if (bad_tile(S, rpt, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const cudaError_t rc = cudaFuncSetAttribute(
       attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

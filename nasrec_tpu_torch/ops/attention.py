@@ -5,8 +5,11 @@ Reference semantics (ref: nasrec/supernet/modules.py:599-688): slot projection
 S_in -> out_slots (+ optional LN over slots), 8-head self-attention
 (E=16, head_dim 2), residual + LN(0.17), ReLU FFN E->E->E, residual + LN(0.17).
 
-The slot projection is a PyTorch product.  Everything after it, the body, has
-three forms that compute the same function:
+The slot projection is a PyTorch product that leaves its output as
+[B, E, S]; the fused body's kernels read that layout in place (as the
+transposed view [B, S, E]) and return the input gradient in it, so no
+transposed copy is made on either side of the body.  Everything after the
+projection, the body, has three forms that compute the same function:
 
   - fused (the default): one hand-written kernel forward and one backward,
     `ops/kernels/transformer_body.py`, as the JAX package runs
@@ -95,7 +98,7 @@ class Transformer(nn.Module):
         xt = self.proj(xt)
         if self.proj_ln is not None:
             xt = self.proj_ln(xt)
-        x = xt.transpose(1, 2)                                          # [B, S, E]
+        x = xt.transpose(1, 2)                      # [B, S, E], a view: no copy
         if self.fused and impl != "plain":
             return transformer_body(x, self.body_params(), num_heads, impl).reshape(b, -1)
         x = self.attn_ln(self.mha(x, num_heads, impl) + x)   # residual + LN (ref :666-668)

@@ -7,10 +7,16 @@ qkv[3E, S, B]; this one takes batch-major qkv [B, S, 48] (q, k and v stacked
 on the last axis, as `F.linear(x, w_in, b_in)` leaves them) and returns
 o [B, S, 16].  Eight heads of width 2; the backward is a kernel too and
 recomputes the softmax from qkv, since nothing is saved.
+
+The kernels fold the softmax into base-2 exponentials of pre-scaled scores and
+one statistic a head (`csrc/tiny_attn.cuh`); `tiny_head_attention_folded` and
+`tiny_head_attention_folded_bwd` are that arithmetic in plain PyTorch, so that
+it can be held against the plain version without a card.
 """
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 
 import torch
@@ -47,10 +53,62 @@ def tiny_head_attention_plain(qkv: torch.Tensor, num_heads: int = HEADS) -> torc
     return out.reshape(b, s, e)
 
 
+def _heads(qkv: torch.Tensor, num_heads: int) -> tuple:
+    b, s, e3 = qkv.shape
+    hd = e3 // 3 // num_heads
+    return tuple(t.reshape(b, s, num_heads, hd) for t in qkv.split(e3 // 3, dim=-1))
+
+
+def softmax_lse2(qkv: torch.Tensor, num_heads: int = HEADS) -> torch.Tensor:
+    """The statistic the kernels save, in its plain form: the log-sum-exp of a
+    query's scores, in base 2 (times log2 e).  qkv [B, S, 3E] -> [B, S, H]."""
+    q, k, _ = _heads(qkv, num_heads)
+    scores = torch.einsum("bqhd,bkhd->bqhk", q, k) / (q.shape[-1] ** 0.5)
+    return torch.logsumexp(scores, dim=-1) * math.log2(math.e)
+
+
+def tiny_head_attention_folded(qkv: torch.Tensor, num_heads: int = HEADS) -> tuple:
+    """The forward as the kernels compute it: the query scaled once by
+    log2(e) / sqrt(hd), p = 2^(t - max), and lse2 = max + log2(sum p) as the one
+    saved statistic.  qkv [B, S, 3E] -> (o [B, S, E], lse2 [B, S, H])."""
+    b, s, e3 = qkv.shape
+    q, k, v = _heads(qkv, num_heads)
+    q2 = q * (math.log2(math.e) / q.shape[-1] ** 0.5)
+    t = torch.einsum("bqhd,bkhd->bqhk", q2, k)
+    m = t.amax(dim=-1, keepdim=True)
+    p = torch.exp2(t - m)
+    total = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bqhk,bkhd->bqhd", p, v) / total
+    return o.reshape(b, s, e3 // 3), (m + torch.log2(total)).squeeze(-1)
+
+
+def tiny_head_attention_folded_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
+                                   lse2: torch.Tensor, num_heads: int = HEADS) -> torch.Tensor:
+    """The backward as the kernels compute it, from the saved o and lse2:
+    p = 2^(t - lse2) is the normalised probability, ds = p (do . v - do . o),
+    dq = sum_k ds k / sqrt(hd), dk = ln 2 sum_q ds q2 (q2 carries the log2 e),
+    dv = sum_q p do.  -> dqkv [B, S, 3E]."""
+    b, s, e3 = qkv.shape
+    q, k, v = _heads(qkv, num_heads)
+    hd = q.shape[-1]
+    dov, ov = do.reshape(b, s, num_heads, hd), o.reshape(b, s, num_heads, hd)
+    q2 = q * (math.log2(math.e) / hd ** 0.5)
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bqhk", q2, k) - lse2[..., None])
+    dsum = (dov * ov).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bqhd,bkhd->bqhk", dov, v) - dsum)
+    dq = torch.einsum("bqhk,bkhd->bqhd", ds, k) * (1.0 / hd ** 0.5)
+    dk = torch.einsum("bqhk,bqhd->bkhd", ds, q2) * math.log(2.0)
+    dv = torch.einsum("bqhk,bqhd->bkhd", p, dov)
+    return torch.cat([t.reshape(b, s, e3 // 3) for t in (dq, dk, dv)], dim=-1)
+
+
 def check_f32_cuda(x: torch.Tensor, what: str, shape: tuple) -> None:
     if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{what}: needs a contiguous float32 CUDA tensor, got "
                          f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernels load 16 bytes at a time and need the "
+                         "tensor's first element aligned to 16 bytes")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
 

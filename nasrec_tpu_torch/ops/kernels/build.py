@@ -4,8 +4,9 @@ at first use, and bind them with ctypes.
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 `sm_90a` into `nasrec_tpu_torch/_build/lib<name>-<hash>.so`, where the hash
 covers the source, the headers of `csrc/` (any source may include them) and
-the flags, so an edited source or header never loads a stale library.  Nothing is built when a module is imported: `load_library` builds
-on the first launch, and `build_all` builds every kernel at once (one `nvcc`
+the flags, so an edited source or header never loads a stale library.
+Nothing is built when a module is imported: `load_library` builds on the
+first launch, and `build_all` builds every kernel at once (one `nvcc`
 process per source, all started together).
 
 The kernels launch on PyTorch's current stream, allocate nothing, and return
@@ -57,9 +58,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "transformer_body": {
         "nasrec_body_fwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int,
-                            _c_int, _c_float, _c_ptr),
+                            _c_int, _c_int, _c_float, _c_ptr),
         "nasrec_body_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                            _c_ll, _c_int, _c_int, _c_int, _c_float, _c_ptr),
+                            _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr),
     },
 }
 

@@ -2,12 +2,13 @@
 
     python -m nasrec_tpu_torch.tools.body_bwd_register_caps      # one CUDA card
 
-`body_bwd_kernel` (csrc/transformer_body.cu) compiles to 255 registers a
-thread, so two 128-thread blocks fit a multiprocessor.  This script builds
-copies of the source whose backward kernel is capped by
-`__launch_bounds__(128, n)` for n = 3 and 4 blocks, prints what ptxas says of
-each (registers, spills), and times each at batch 32768, S = 64 and 48, with a
-grid of n blocks a multiprocessor.  It changes nothing in the package.
+`body_bwd_kernel` (csrc/transformer_body.cu) takes about 240 registers a
+thread, which admits two 128-thread blocks a multiprocessor; its 72 KB of
+shared memory a block would admit three.  This script builds copies of the
+source capped by `__launch_bounds__(128, n)` for n = 2, 3 and 4 blocks, prints
+what ptxas says of each (registers, spills), and times each at batch 32768,
+S = 64 and 48, with a grid of n blocks a multiprocessor.  It changes nothing
+in the package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-OLD = "__launch_bounds__(kMaxThreads)\nbody_bwd_kernel"
+OLD = "__launch_bounds__(kMaxThreads, kBwdBlocksPerSm)\nbody_bwd_kernel"
 BATCH = 32768
 
 
@@ -61,9 +62,8 @@ def main() -> None:
         tmp = Path(tempfile.mkdtemp())
         for f in csrc.iterdir():
             shutil.copy(f, tmp / f.name)
-        if blocks > 2:
-            (tmp / "transformer_body.cu").write_text(source.replace(
-                OLD, f"__launch_bounds__(kMaxThreads, {blocks})\nbody_bwd_kernel"))
+        (tmp / "transformer_body.cu").write_text(source.replace(
+            OLD, f"__launch_bounds__(kMaxThreads, {blocks})\nbody_bwd_kernel"))
         build.CSRC_DIR = tmp
         build._LOADED.pop("transformer_body", None)
         log = build.build_all(["transformer_body"]).get("transformer_body", {}).get("log", "")
@@ -71,13 +71,14 @@ def main() -> None:
         for i, line in enumerate(lines):
             if "Compiling" in line and "body_bwd_kernel" in line:
                 print(f"blocks/SM {blocks}:", " | ".join(x.strip() for x in lines[i + 2:i + 4]))
-        tb.MAX_BWD_BLOCKS = 132 * blocks
+        tb.BWD_BLOCKS_PER_SM = blocks
         for s, (x, dout, flat) in data.items():
             _, o, stats = tb.transformer_body_fwd_kernel(x, flat, True)
             t = ms(lambda: tb.transformer_body_bwd_kernel(x, dout, o, stats, flat))
             print(f"blocks/SM {blocks}: S = {s} backward {t:.4f} ms")
         shutil.rmtree(tmp)
     build.CSRC_DIR = csrc
+    tb.BWD_BLOCKS_PER_SM = 2
 
 
 if __name__ == "__main__":

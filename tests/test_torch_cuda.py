@@ -2,7 +2,8 @@
 shapes the main path does not reach: a batch that is not a multiple of the
 kernel's tile, the smallest operand (n = 2, one pair score), an empty update,
 sentinel rows, row_offset shards and a hot row repeated at many positions;
-the transformer body and the attention core at batches of 1, 37 and 2048.
+the transformer body and the attention core at batches of 1, 37 and 2048,
+the body with x in both layouts its kernels read in place.
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -17,7 +18,8 @@ step by step like the plain version and each row is written by one thread
 group.  The transformer body and the attention core: forward rtol 1e-5 /
 atol 1e-5, input gradients rtol 2e-4 / atol 2e-4 (the tolerances the JAX
 package holds its TPU kernels to), parameter gradients, which sum over every
-position of the batch, 2e-4 of the gradient's largest magnitude.
+position of the batch, 2e-4 of the gradient's largest magnitude.  The saved
+softmax statistic (a base-2 log-sum-exp) rtol 1e-5 / atol 1e-5.
 """
 
 import pytest
@@ -103,9 +105,13 @@ def test_table_update_kernel_row_offset_shards(dev):
     assert torch.equal(torch.cat([lo_a, hi_a]), whole_a)
 
 
-def _body_case(dev, batch, slots, seed):
+def _body_case(dev, batch, slots, seed, layout="contiguous"):
+    """layout 'slot_minor': x is the transposed view of a contiguous
+    [batch, 16, slots], as the transformer node's slot projection leaves it."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(batch, slots, 16, device=dev, generator=gen)
+    if layout == "slot_minor":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
     params = []
     for name, shape in zip(transformer_body.PARAM_NAMES, transformer_body.PARAM_SHAPES):
         p = 0.3 * torch.randn(shape, device=dev, generator=gen)
@@ -132,10 +138,11 @@ def _body_grads(x, params, dout, impl):
     return out.detach(), grads[0], grads[1:]
 
 
-@pytest.mark.parametrize("slots", [16, 48, 64])
+@pytest.mark.parametrize("layout", ["contiguous", "slot_minor"])
+@pytest.mark.parametrize("slots", [16, 24, 48, 64])
 @pytest.mark.parametrize("batch", [1, 37, 2048])
-def test_transformer_body_kernel_matches_plain(dev, batch, slots):
-    x, params, dout = _body_case(dev, batch, slots, batch * 100 + slots)
+def test_transformer_body_kernel_matches_plain(dev, batch, slots, layout):
+    x, params, dout = _body_case(dev, batch, slots, batch * 100 + slots, layout)
     before = dict(transformer_body.LAUNCHES)
     with torch.no_grad():
         out_eval = transformer_body.transformer_body(x, params)      # eval forward
@@ -148,6 +155,8 @@ def test_transformer_body_kernel_matches_plain(dev, batch, slots):
 
     torch.testing.assert_close(out_eval, out_p, rtol=1e-5, atol=1e-5)
     assert torch.equal(out_eval, out_k)
+    # dx comes back in the layout x had, so nothing is copied on the way out.
+    assert dx_k.stride() == x.stride()
     torch.testing.assert_close(dx_k, dx_p, rtol=2e-4, atol=2e-4)
     for name, gk, gp in zip(transformer_body.PARAM_NAMES, dp_k, dp_p):
         tol = 2e-4 * max(1.0, gp.abs().max().item())
@@ -155,6 +164,19 @@ def test_transformer_body_kernel_matches_plain(dev, batch, slots):
     # Two backward runs from the same inputs give the same bits.
     assert torch.equal(dx_k, dx_2)
     assert all(torch.equal(a, b) for a, b in zip(dp_k, dp_2))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "slot_minor"])
+@pytest.mark.parametrize("batch,slots", [(1, 16), (37, 24), (37, 48), (2048, 64)])
+def test_transformer_body_kernel_saves_o_and_statistic(dev, batch, slots, layout):
+    x, params, _ = _body_case(dev, batch, slots, batch + slots, layout)
+    flat = transformer_body.flatten_params(params)
+    out, o, lse2 = transformer_body.transformer_body_fwd_kernel(x, flat, save=True)
+    qkv = F.linear(x, params[0], params[1])
+    torch.cuda.synchronize()
+    assert out.is_contiguous() and o.is_contiguous() and lse2.shape == (batch, slots, 8)
+    torch.testing.assert_close(o, attention.tiny_head_attention_plain(qkv), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse2, attention.softmax_lse2(qkv), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("batch,slots", [(1, 16), (37, 48), (5, 24), (2048, 64), (3, 128)])
