@@ -80,9 +80,8 @@ class DotProduct(nn.Module):
             yt = self.slot_proj(yt)                       # [B, E, slot_dim]
             if self.slot_ln is not None:
                 yt = self.slot_ln(yt)
-        # Kernel operand [B, n, 16]: the projected dense row, then the slots.
-        t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1).contiguous()
-        out = dot_scores_tril(t, impl)                    # [B, P]
+        # The kernel takes the projected dense row and the slots as they lie.
+        out = dot_scores_tril(x, yt, impl)                # [B, P], n = 1 + slot_dim
         if self.out_proj is not None:
             out = self.out_proj(out)
         if self.out_ln is not None:

@@ -45,8 +45,10 @@ _c_ptr, _c_ll, _c_int, _c_float = (
 # C signature of every exported function: name -> argtypes (restype is int).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "dotprod": {
-        "nasrec_dotprod_fwd": (_c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_ptr),
-        "nasrec_dotprod_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_ptr),
+        "nasrec_dotprod_fwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ll, _c_int, _c_int,
+                               _c_int, _c_ptr),
+        "nasrec_dotprod_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int,
+                               _c_int, _c_int, _c_ptr),
     },
     "table_update": {
         "nasrec_table_update": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,

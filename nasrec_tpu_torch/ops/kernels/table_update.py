@@ -57,6 +57,9 @@ def table_update_kernel(table, acc, rows, seg16, lr: float, eps: float = 1e-2,
         if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"table_update: {what} must be a contiguous {dt} CUDA "
                              f"tensor, got {x.dtype} on {x.device}")
+        if what != "rows" and x.data_ptr() % 16:
+            raise ValueError(f"table_update: {what} must start on a 16-byte boundary "
+                             "(the kernel moves a row in 16-byte pieces)")
     lib = build.load_library("table_update")
     build.check(lib.nasrec_table_update(
         table.data_ptr(), acc.data_ptr(), rows.data_ptr(), seg16.data_ptr(),

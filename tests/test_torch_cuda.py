@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at edge
 shapes the main path does not reach: a batch that is not a multiple of the
-kernel's tile, the smallest operand (n = 2, one pair score), an empty update,
-sentinel rows, row_offset shards and a hot row repeated at many positions;
+kernel's tile, the smallest operand (n = 2, one pair score), an odd slot count
+(n = 46: runs of 45 floats and z rows of 4,140 bytes, on no 16-byte boundary),
+the launch shapes the defaults do not use, an empty update, a position count
+that fills no whole block, sentinel rows, row_offset shards and a hot row
+repeated at many positions;
 the transformer body and the attention core at batches of 1, 37 and 2048,
 the body with x in both layouts its kernels read in place.
 chip_smoke.py holds the same kernels at the main path's shapes.
@@ -12,8 +15,9 @@ the card run it without tests/conftest.py, which imports JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance (f32): the dot-product forward rtol 1e-5 / atol 1e-5, its backward
-rtol 1e-5 / atol 1e-4 (sums of up to 45 products of N(0,1) values, ordered
-differently from cuBLAS); the table update exact, since the kernel rounds
+(dx and dyt) rtol 1e-5 / atol 1e-4 (sums of up to 45 products of N(0,1)
+values, ordered differently from cuBLAS), equal bits from two runs; the table
+update exact, since the kernel rounds
 step by step like the plain version and each row is written by one thread
 group.  The transformer body and the attention core: forward rtol 1e-5 /
 atol 1e-5, input gradients rtol 2e-4 / atol 2e-4 (the tolerances the JAX
@@ -39,22 +43,61 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("batch,n", [(1, 2), (5, 3), (37, 17), (13, 46), (1000, 46)])
+@pytest.mark.parametrize("batch,n", [(1, 2), (5, 3), (37, 17), (13, 46), (1000, 46),
+                                     (32768 + 3, 40), (9, 70), (3, 128), (0, 5)])
 def test_dot_scores_tril_kernel_matches_plain(dev, batch, n):
     gen = torch.Generator(device=dev).manual_seed(batch * 100 + n)
-    t = torch.randn(batch, n, 16, device=dev, generator=gen)
+    x = torch.randn(batch, 16, device=dev, generator=gen)
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen)
     dz = torch.randn(batch, dotprod.tril_size(n), device=dev, generator=gen)
 
-    tk = t.clone().requires_grad_(True)
-    zk = dotprod.dot_scores_tril(tk)                 # CUDA -> the kernel
-    zk.backward(dz)
-    tp = t.clone().requires_grad_(True)
-    zp = dotprod.dot_scores_tril(tp, impl="plain")
-    zp.backward(dz)
+    def run(impl):
+        xs, ys = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+        z = dotprod.dot_scores_tril(xs, ys, impl=impl)   # CUDA, "auto" -> the kernel
+        z.backward(dz)
+        return z.detach(), xs.grad, ys.grad
+
+    before = dict(dotprod.LAUNCHES)
+    zk, dxk, dyk = run("auto")
+    z2, dx2, dy2 = run("auto")
+    zp, dxp, dyp = run("plain")
     torch.cuda.synchronize()
+    for key in (f"fwd_n{n}", f"bwd_n{n}"):
+        assert dotprod.LAUNCHES[key] == before.get(key, 0) + 2, key
 
     torch.testing.assert_close(zk, zp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(tk.grad, tp.grad, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dxk, dxp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dyk, dyp, rtol=1e-5, atol=1e-4)
+    # Two runs from the same inputs give the same bits.
+    assert torch.equal(zk, z2) and torch.equal(dxk, dx2) and torch.equal(dyk, dy2)
+
+
+@pytest.mark.parametrize("shape", ["fwd_3x128", "fwd_7x64", "bwd_4", "bwd_8"])
+@pytest.mark.parametrize("batch,n", [(5, 3), (37, 17), (1000, 46)])
+def test_dot_scores_tril_kernel_other_launch_shapes(dev, batch, n, shape):
+    """Tiles, block sizes and feature splits other than the default launch's
+    (forward: batch rows a tile x threads; backward: features a thread)."""
+    gen = torch.Generator(device=dev).manual_seed(batch + n)
+    x = torch.randn(batch, 16, device=dev, generator=gen)
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen)
+    dz = torch.randn(batch, dotprod.tril_size(n), device=dev, generator=gen)
+    xs, ys = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+    zp = dotprod.dot_scores_tril_plain(xs, ys)
+    dxp, dyp = torch.autograd.grad(zp, [xs, ys], dz)
+    kind, tile = shape.split("_")
+    key = (kind, n)
+    dotprod.TUNE[key] = (tuple(map(int, tile.split("x"))) if kind == "fwd"
+                         else (int(tile), 3, 64))
+    try:
+        if kind == "fwd":
+            torch.testing.assert_close(dotprod.dot_scores_tril_fwd_kernel(x, yt), zp.detach(),
+                                       rtol=1e-5, atol=1e-5)
+        else:
+            dxk, dyk = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+            torch.testing.assert_close(dxk, dxp, rtol=1e-5, atol=1e-4)
+            torch.testing.assert_close(dyk, dyp, rtol=1e-5, atol=1e-4)
+    finally:
+        del dotprod.TUNE[key]
 
 
 def _update_case(dev, vocab, positions, seed, hot_row=None, sentinels=0):
@@ -80,7 +123,8 @@ def _update_case(dev, vocab, positions, seed, hot_row=None, sentinels=0):
 
 
 @pytest.mark.parametrize("vocab,positions,hot_row,sentinels",
-                         [(100, 0, None, 0), (1000, 777, None, 5), (500, 4096, 7, 3)])
+                         [(100, 0, None, 0), (1000, 777, None, 5), (500, 4096, 7, 3),
+                          (3000, 1001, None, 0)])   # 1001: no multiple of a block's positions
 def test_table_update_kernel_matches_plain(dev, vocab, positions, hot_row, sentinels):
     rows, seg, table, acc = _update_case(dev, vocab, positions, vocab, hot_row, sentinels)
     tk, ak = table.clone(), acc.clone()
@@ -205,3 +249,25 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         transformer_body.transformer_body(x.double(), [p.double() for p in params])
     with pytest.raises(ValueError, match="slots"):
         attention.tiny_head_attention(torch.zeros(2, 129, 48, device=dev))
+    xd, yd = torch.zeros(4, 16, device=dev), torch.zeros(4, 16, 7, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        dotprod.dot_scores_tril(xd.cpu(), yd.cpu(), impl="kernel")
+    with pytest.raises(ValueError, match="contiguous"):        # slots not minor
+        dotprod.dot_scores_tril_fwd_kernel(xd, torch.zeros(4, 7, 16, device=dev).transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        dotprod.dot_scores_tril_fwd_kernel(xd.double(), yd.double())
+    with pytest.raises(ValueError, match="m >= 1"):            # no slot: no pair
+        dotprod.dot_scores_tril_fwd_kernel(xd, yd[:, :, :0].contiguous())
+    with pytest.raises(ValueError, match="expected"):          # 8 features
+        dotprod.dot_scores_tril_fwd_kernel(xd[:, :8].contiguous(), yd)
+    with pytest.raises(ValueError, match="expected"):          # dz of another n
+        dotprod.dot_scores_tril_bwd_kernel(xd, yd, torch.zeros(4, 21, device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        dotprod.dot_scores_tril_fwd_kernel(xd, torch.zeros(4, 16, 400, device=dev))
+    table = torch.zeros(10, 16, device=dev)
+    rows, seg = torch.zeros(3, dtype=torch.int32, device=dev), torch.zeros(3, 16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        table_update.table_update(table, table.clone(), rows.long(), seg, 0.1)
+    with pytest.raises(ValueError, match="16-byte"):           # a row is moved in 16-byte pieces
+        table_update.table_update(torch.zeros(161, device=dev)[1:].view(10, 16), table, rows,
+                                  seg, 0.1)

@@ -123,3 +123,33 @@ def test_dot_product_flat(case, impl):
            module, lambda m, d, s: m(d, s, slots, E),
            [rng.randn(B, dense_in).astype(np.float32),
             rng.randn(B, slots * E).astype(np.float32)])
+
+
+@pytest.mark.parametrize("case", sorted(DOT_CASES))
+def test_dot_product_hands_the_kernel_its_operands_as_they_lie(case, monkeypatch):
+    """The node gives `dot_scores_tril` the projected dense row [B, 16] and the
+    projected slots [B, 16, slot_dim], contiguous wherever a slot projection
+    made them, and builds no [B, n, 16] tensor; the plain version on those
+    operands equals the concat-and-transpose form it replaced."""
+    from nasrec_tpu_torch.ops import interactions
+    from nasrec_tpu_torch.ops.kernels import dotprod
+
+    dense_in, slots, out_dim, use_ln = DOT_CASES[case]
+    module = DotProduct(dense_in, slots, out_dim, E, use_ln, _gen())
+    seen = {}
+
+    def spy(x, yt, impl="auto"):
+        seen["x"], seen["yt"] = x, yt
+        return dotprod.dot_scores_tril(x, yt, impl)
+
+    monkeypatch.setattr(interactions, "dot_scores_tril", spy)
+    rng = np.random.RandomState(5)
+    module(torch.from_numpy(rng.randn(B, dense_in).astype(np.float32)),
+           torch.from_numpy(rng.randn(B, slots * E).astype(np.float32)), slots, E)
+    slot_dim = interactions.dot_product_slot_dim(out_dim)
+    x, yt = seen["x"], seen["yt"]
+    assert tuple(x.shape) == (B, E) and tuple(yt.shape) == (B, E, slot_dim)
+    assert yt.is_contiguous() == (module.slot_proj is not None)
+    t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1)
+    want = torch.einsum("bne,bme->bnm", t, t)[:, *torch.tril_indices(1 + slot_dim, 1 + slot_dim, -1)]
+    torch.testing.assert_close(dotprod.dot_scores_tril_plain(x, yt), want, rtol=0, atol=0)
