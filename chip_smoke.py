@@ -24,7 +24,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
               and CUDA-event times of kernel, plain version and the one
               PyTorch call that computes the same function; for the
               dot-product and the table update also the kernel's time with
-              the L2 cache overwritten before each launch (cold_ms).
+              the L2 cache overwritten before each launch (cold_ms).  Then the
+              supernet's shapes, in rows named "_b512" and "_b4096": the body
+              at S = 64 (training forward and backward at batch 512, eval
+              forward at 4096), the dot-product at n = 46 (both at 512, the
+              forward at 4096) and the table update over the search-capped
+              table (3,069,317 rows) at batch 512, each with cold_ms.
   3. main     sparse-embedding train steps at full Criteo vocab (33,762,601
               rows) and batch 32768 through the kernels, counted, then the
               same steps from the same weights through the plain versions:
@@ -34,9 +39,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
               then 4 steps of criteo-kaggle/autoctr.  A torch.profiler window
               over 3 more kernel-path steps prints where the device time
               goes (one "profile" line per arch).
-  4. cli      nasrec_tpu_torch.cli.main_train on synthetic data, once per
+  4. supernet one-shot supernet training, criteo-kaggle space xlarge, 7
+              blocks with LayerNorm, 3,069,317 rows, batch 512: 12 masked train
+              steps (masks from the port's ChoiceSampler through the device
+              mask buffer: the full path and subnets with a transformer or a
+              dot-product gate of 0) and one eval forward at batch 4096 through
+              the kernels, with the launches of every step counted (7 body
+              forward and 7 backward at S = 64, 7 dot-product forward and 7
+              backward at n = 46, 1 table update), then the same steps through
+              the plain versions, and a profile line.
+  5. cli      nasrec_tpu_torch.cli.main_train on synthetic data, once per
               arch; 40 steps must lower the test loss, lift the AUROC above
               0.6 and launch every kernel of the path (counted as in phase 3).
+              Then nasrec_tpu_torch.cli.train_supernet at 7 blocks and batch
+              512 with a logging dir, resumed from its checkpoint; the resumed
+              checkpoint reloads into a fresh model with equal eval logits.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -104,6 +121,28 @@ EVAL_KERNELS = {
 UNFUSED_STEP_KERNELS = (
     {k for k in TRAIN_STEP_KERNELS["xlarge"] if not k.startswith("transformer_body")}
     | {f"tiny_head_attention_{k}_s{s}" for k in ("fwd", "bwd") for s in BODY_SLOTS})
+# The supernet (phase 5): criteo-kaggle at the search cap of 500,000 rows a
+# slot (config.SEARCH_MAX_NUM_EMBEDDINGS: 3,069,317 rows in all), space
+# xlarge, 7 blocks with LayerNorm, batch 512, eval batch 4096.  Masks from the
+# port's ChoiceSampler (default strategy, binomial-0.5 fan-in, seed 0, full-path
+# warmup over 4 steps) through the device mask buffer.
+SN_VOCAB_CAP = 500_000
+SN_ROWS = 3_069_317
+SN_BLOCKS = 7
+SN_BATCH = 512
+SN_EVAL_BATCH = 4096
+SN_STEPS = 12
+SN_WARMUP = 4
+SN_CLI_STEPS, SN_RESUME_STEPS = 6, 3
+# Every block runs every node, whatever its gate: a transformer body at S = 64
+# (its slots projected to 64) and a dot-product at n = 46 (45 projected slots
+# and the dense row).  Launches of one train step, and of one eval forward:
+SN_STEP_LAUNCHES = {"transformer_body_fwd_train_s64": SN_BLOCKS,
+                    "transformer_body_bwd_s64": SN_BLOCKS,
+                    "dot_scores_tril_fwd_n46": SN_BLOCKS, "dot_scores_tril_bwd_n46": SN_BLOCKS,
+                    "table_update": 1}
+SN_EVAL_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
+                    "dot_scores_tril_fwd_n46": SN_BLOCKS}
 
 
 def emit(obj) -> None:
@@ -294,12 +333,14 @@ def relu_edge_rows(x, params):
         return (F.linear(x4, params[6], params[7]).abs() < RELU_MARGIN).flatten(1).any(1)
 
 
-def check_transformer_body(slots, hbm, gen, rows_out) -> None:
-    """The body kernels at [BATCH, slots, 16] against the plain version: the
+def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
+                           kinds=("fwd", "fwd_train", "bwd"), cold=False) -> None:
+    """The body kernels at [batch, slots, 16] against the plain version: the
     eval forward, the training forward (out, o, statistic), the backward (dx
     and each of the twelve parameter gradients), equal bits from two backward
-    runs and from both layouts of x, and the times.  x is laid out as the
-    main path gives it: the transposed view of a contiguous [BATCH, 16, slots]."""
+    runs and from both layouts of x, and the times of the rows in `kinds`,
+    named with `suffix`.  x is laid out as the main path gives it: the
+    transposed view of a contiguous [batch, 16, slots]."""
     import torch
     import torch.nn.functional as F
 
@@ -307,8 +348,8 @@ def check_transformer_body(slots, hbm, gen, rows_out) -> None:
     from nasrec_tpu_torch.ops.kernels.attention import softmax_lse2, tiny_head_attention_plain
 
     dev = torch.device(DEVICE)
-    x = torch.randn(BATCH, 16, slots, device=dev, generator=gen).transpose(1, 2)
-    dout = torch.randn(BATCH, slots, 16, device=dev, generator=gen)
+    x = torch.randn(batch, 16, slots, device=dev, generator=gen).transpose(1, 2)
+    dout = torch.randn(batch, slots, 16, device=dev, generator=gen)
     params = []
     for name, shape in zip(tb.PARAM_NAMES, tb.PARAM_SHAPES):
         p = 0.3 * torch.randn(shape, device=dev, generator=gen)
@@ -330,7 +371,7 @@ def check_transformer_body(slots, hbm, gen, rows_out) -> None:
     torch.cuda.synchronize()
     same_bits = (torch.equal(out_e, out_t) and torch.equal(dx_k, dx_2)
                  and torch.equal(dflat_k, dflat_2))
-    # The same values as a contiguous [BATCH, slots, 16]: the other layout the
+    # The same values as a contiguous [batch, slots, 16]: the other layout the
     # kernels read in place.  dx comes back in the layout x had.
     xc = x.contiguous()
     out_c, o_c, stats_c = tb.transformer_body_fwd_kernel(xc, flat, save=True)
@@ -355,7 +396,7 @@ def check_transformer_body(slots, hbm, gen, rows_out) -> None:
         errs[key], good = within(got, want, tol)
         scales[key] = want.abs().max().item()
         ok = ok and good
-    emit({"phase": "kernels", "kernel": "transformer_body", "slots": slots, "batch": BATCH,
+    emit({"phase": "kernels", "kernel": "transformer_body", "slots": slots, "batch": batch,
           "max_abs_err": errs, "grad_scale": scales, "equal_bits_twice": same_bits,
           "equal_bits_both_layouts": same_layouts,
           "rows_at_a_relu_edge": int(unsure.sum()), "ok": ok})
@@ -392,32 +433,37 @@ def check_transformer_body(slots, hbm, gen, rows_out) -> None:
     except RuntimeError as exc:
         out_l, lib_err, lib_ok, note = None, None, False, str(exc)[:200]
     emit({"phase": "kernels", "library": "nn.TransformerEncoderLayer", "slots": slots,
+          "batch": batch,
           "max_abs_err_vs_plain": lib_err, "agrees": lib_ok, "error": note})
 
-    pos = BATCH * slots
+    pos = batch * slots
     f_fwd, f_bwd = body_flops(slots)
     tensor_bytes = pos * 16 * 4
     # Tensors moved, in units of one [B, S, 16]: x and out; with o and the
     # statistic [B, S, 8]; x, dout, o, the statistic and dx.
-    for name, kern, plain, lib_fn, ntensors, flops, err in (
-        (f"transformer_body_fwd_s{slots}",
+    for kind, kern, plain, lib_fn, ntensors, flops, err in (
+        ("fwd",
          lambda: tb.transformer_body_fwd_kernel(x, flat, save=False),
          lambda: no_grad_call(tb.transformer_body_plain, x, params), lib_eval,
          2, f_fwd, errs["out"]),
-        (f"transformer_body_fwd_train_s{slots}",
+        ("fwd_train",
          lambda: tb.transformer_body_fwd_kernel(x, flat, save=True),
          lambda: tb.transformer_body_plain(xg, pg), lambda: lib(xl),
          3.5, f_fwd, max(errs["out"], errs["o"], errs["stats"])),
-        (f"transformer_body_bwd_s{slots}",
+        ("bwd",
          lambda: tb.transformer_body_bwd_kernel(x, dout, o_k, stats_k, flat),
          lambda: torch.autograd.grad(out_g, [xg] + pg, dout, retain_graph=True),
          lambda: torch.autograd.grad(out_l, [xl] + lib_params, dout, retain_graph=True),
          4.5, f_bwd, max(v for k, v in errs.items() if k.startswith("d"))),
     ):
+        if kind not in kinds:
+            continue
+        name = f"transformer_body_{kind}_s{slots}{suffix}"
         rows_out[name] = kernel_row(name, BODY_SOURCE, BODY_REPLACES, err, kern, plain,
                                     lib_fn if lib_ok else None,
                                     ntensors * tensor_bytes + 2 * flat.numel() * 4,
-                                    flops * pos, hbm, heavy=True, exps=8 * slots * pos)
+                                    flops * pos, hbm, heavy=True, exps=8 * slots * pos,
+                                    cold=cold)
     del out_g, out_l, grads_p, xg, xl
     torch.cuda.empty_cache()
 
@@ -516,103 +562,101 @@ def check_fused_against_unfused(gen) -> None:
 
 
 
-def phase_kernels(hbm):
-    """Each kernel against its plain version at the main paths' shapes."""
+def check_dot_scores(n, hbm, gen, rows_out, batch=BATCH, suffix="",
+                     kinds=("fwd", "bwd")) -> None:
+    """The dot-product kernels at batch rows against the plain version, on the
+    operands as the DotProduct node holds them: the projected dense row
+    x [B, 16] and the projected slots yt [B, 16, n - 1]; equal bits from two
+    runs; the times of the rows in `kinds`, named with `suffix`."""
+    import torch
+
+    from nasrec_tpu_torch.ops.kernels import dotprod
+
+    dev = torch.device(DEVICE)
+    P = dotprod.tril_size(n)
+    x = torch.randn(batch, 16, device=dev, generator=gen)
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen)
+    dz = torch.randn(batch, P, device=dev, generator=gen)
+    idx = dotprod._tril_flat_index(n, dev)
+    idx_t = (idx % n) * n + idx // n
+
+    z_k = dotprod.dot_scores_tril_fwd_kernel(x, yt)
+    dx_k, dy_k = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+    z_2 = dotprod.dot_scores_tril_fwd_kernel(x, yt)
+    dx_2, dy_2 = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+    xg, yg = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+    z_g = dotprod.dot_scores_tril_plain(xg, yg)
+    dx_p, dy_p = torch.autograd.grad(z_g, [xg, yg], dz, retain_graph=True)
+    torch.cuda.synchronize()
+    same_bits = (torch.equal(z_k, z_2) and torch.equal(dx_k, dx_2)
+                 and torch.equal(dy_k, dy_2))
+    fe, fr, fs = max_err(z_k, z_g.detach())
+    xe, xr, xs = max_err(dx_k, dx_p)
+    ye, yr, ys = max_err(dy_k, dy_p)
+    ok = (same_bits and fe <= KERNEL_REL_TOL * max(fs, 1.0)
+          and xe <= KERNEL_REL_TOL * max(xs, 1.0) and ye <= KERNEL_REL_TOL * max(ys, 1.0))
+    emit({"phase": "kernels", "kernel": "dot_scores_tril", "n": n, "batch": batch,
+          "z_max_abs_err": fe, "z_max_rel_err": fr, "dx_max_abs_err": xe,
+          "dx_max_rel_err": xr, "dyt_max_abs_err": ye, "dyt_max_rel_err": yr,
+          "equal_bits_twice": same_bits, "fwd_launch": list(dotprod.fwd_config(n)),
+          "bwd_launch": list(dotprod.bwd_config(n)), "ok": ok})
+    if not ok:
+        raise SystemExit(f"dot_scores_tril n={n} batch={batch} disagrees with its plain version")
+
+    # The library calls work on t [B, n, 16], which only they need.
+    t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1).contiguous()
+
+    def lib_fwd():
+        return torch.bmm(t, t.transpose(1, 2)).reshape(batch, n * n)[:, idx]
+
+    def lib_bwd():
+        full = torch.zeros(batch, n * n, device=dev)
+        full[:, idx] = dz
+        full[:, idx_t] = dz
+        return torch.bmm(full.reshape(batch, n, n), t)
+
+    t_bytes, z_bytes = batch * n * 16 * 4, batch * P * 4
+    for kind, kern, plain, lib, nbytes, flops, err in (
+        ("fwd",
+         lambda: dotprod.dot_scores_tril_fwd_kernel(x, yt),
+         lambda: no_grad_call(dotprod.dot_scores_tril_plain, x, yt), lib_fwd,
+         t_bytes + z_bytes, 2 * 16 * P * batch, fe),
+        ("bwd",
+         lambda: dotprod.dot_scores_tril_bwd_kernel(x, yt, dz),
+         lambda: torch.autograd.grad(z_g, [xg, yg], dz, retain_graph=True), lib_bwd,
+         2 * t_bytes + z_bytes, 2 * 16 * n * (n - 1) * batch, max(xe, ye)),
+    ):
+        if kind not in kinds:
+            continue
+        name = f"dot_scores_tril_{kind}_n{n}{suffix}"
+        rows_out[name] = kernel_row(
+            name, "nasrec_tpu_torch/csrc/dotprod.cu",
+            "nasrec_tpu/ops/kernels/dotprod_pallas.py:160", err, kern, plain, lib,
+            nbytes, flops, hbm, cold=True)
+    del x, yt, t, dz, z_k, z_2, dx_k, dy_k, dx_2, dy_2, xg, yg, z_g, dx_p, dy_p
+    torch.cuda.empty_cache()
+
+
+def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_update") -> None:
+    """The table update over the fused table of `vocab` against the plain
+    version, with the touched rows of a batch of uniform and of zipf(1.05)
+    indices; the row `name` times the uniform case."""
     import numpy as np
     import torch
 
-    from nasrec_tpu_torch.config import DATASETS
     from nasrec_tpu_torch.models.embedding import table_offsets
-    from nasrec_tpu_torch.ops.kernels import dotprod, table_update
+    from nasrec_tpu_torch.ops.kernels import table_update
     from nasrec_tpu_torch.train.sparse_embedding import rowwise_segment_sum_slotwise
 
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows_out = {}
-    for slots in BODY_SLOTS:
-        check_transformer_body(slots, hbm, gen, rows_out)
-        check_attention(slots, hbm, gen, rows_out)
-    for slots in OFF_PATH_SLOTS:
-        off_path = {}
-        check_transformer_body(slots, hbm, gen, off_path)
-        check_attention(slots, hbm, gen, off_path)
-        emit({"phase": "kernels", "off_path_shape": True, "slots": slots,
-              "rows": list(off_path.values())})
-    check_fused_against_unfused(gen)
-
-    for n in (46, 17, 40, 9):
-        # The operands as the DotProduct node holds them: the projected dense
-        # row x [B, 16] and the projected slots yt [B, 16, n - 1].
-        P = dotprod.tril_size(n)
-        x = torch.randn(BATCH, 16, device=dev, generator=gen)
-        yt = torch.randn(BATCH, 16, n - 1, device=dev, generator=gen)
-        dz = torch.randn(BATCH, P, device=dev, generator=gen)
-        idx = dotprod._tril_flat_index(n, dev)
-        idx_t = (idx % n) * n + idx // n
-
-        z_k = dotprod.dot_scores_tril_fwd_kernel(x, yt)
-        dx_k, dy_k = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
-        z_2 = dotprod.dot_scores_tril_fwd_kernel(x, yt)
-        dx_2, dy_2 = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
-        xg, yg = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
-        z_g = dotprod.dot_scores_tril_plain(xg, yg)
-        dx_p, dy_p = torch.autograd.grad(z_g, [xg, yg], dz, retain_graph=True)
-        torch.cuda.synchronize()
-        same_bits = (torch.equal(z_k, z_2) and torch.equal(dx_k, dx_2)
-                     and torch.equal(dy_k, dy_2))
-        fe, fr, fs = max_err(z_k, z_g.detach())
-        xe, xr, xs = max_err(dx_k, dx_p)
-        ye, yr, ys = max_err(dy_k, dy_p)
-        ok = (same_bits and fe <= KERNEL_REL_TOL * max(fs, 1.0)
-              and xe <= KERNEL_REL_TOL * max(xs, 1.0) and ye <= KERNEL_REL_TOL * max(ys, 1.0))
-        emit({"phase": "kernels", "kernel": "dot_scores_tril", "n": n, "batch": BATCH,
-              "z_max_abs_err": fe, "z_max_rel_err": fr, "dx_max_abs_err": xe,
-              "dx_max_rel_err": xr, "dyt_max_abs_err": ye, "dyt_max_rel_err": yr,
-              "equal_bits_twice": same_bits, "fwd_launch": list(dotprod.fwd_config(n)),
-              "bwd_launch": list(dotprod.bwd_config(n)), "ok": ok})
-        if not ok:
-            raise SystemExit(f"dot_scores_tril n={n} disagrees with its plain version")
-
-        # The library calls work on t [B, n, 16], which only they need.
-        t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1).contiguous()
-
-        def lib_fwd():
-            return torch.bmm(t, t.transpose(1, 2)).reshape(BATCH, n * n)[:, idx]
-
-        def lib_bwd():
-            full = torch.zeros(BATCH, n * n, device=dev)
-            full[:, idx] = dz
-            full[:, idx_t] = dz
-            return torch.bmm(full.reshape(BATCH, n, n), t)
-
-        t_bytes, z_bytes = BATCH * n * 16 * 4, BATCH * P * 4
-        for name, kern, plain, lib, nbytes, flops, err in (
-            (f"dot_scores_tril_fwd_n{n}",
-             lambda: dotprod.dot_scores_tril_fwd_kernel(x, yt),
-             lambda: no_grad_call(dotprod.dot_scores_tril_plain, x, yt), lib_fwd,
-             t_bytes + z_bytes, 2 * 16 * P * BATCH, fe),
-            (f"dot_scores_tril_bwd_n{n}",
-             lambda: dotprod.dot_scores_tril_bwd_kernel(x, yt, dz),
-             lambda: torch.autograd.grad(z_g, [xg, yg], dz, retain_graph=True), lib_bwd,
-             2 * t_bytes + z_bytes, 2 * 16 * n * (n - 1) * BATCH, max(xe, ye)),
-        ):
-            rows_out[name] = kernel_row(
-                name, "nasrec_tpu_torch/csrc/dotprod.cu",
-                "nasrec_tpu/ops/kernels/dotprod_pallas.py:160", err, kern, plain, lib,
-                nbytes, flops, hbm, cold=True)
-        del x, yt, t, dz, z_k, z_2, dx_k, dy_k, dx_2, dy_2, xg, yg, z_g, dx_p, dy_p
-        torch.cuda.empty_cache()
-
-    spec = DATASETS["criteo-kaggle"]
-    vocab = spec.vocab_sizes(VOCAB_CAP)
     total = int(sum(vocab))
     offsets = torch.as_tensor(table_offsets(vocab), device=dev)
     table0 = torch.randn(total, 16, device=dev, generator=gen)
     acc0 = torch.rand(total, 16, device=dev, generator=gen)
     rng = np.random.RandomState(0)
     for kind in ("uniform", "zipf"):
-        idx2d = torch.as_tensor(draw_indices(rng, BATCH, vocab, kind), device=dev) + offsets
-        g = 0.01 * torch.randn(BATCH * 26, 16, device=dev, generator=gen)
+        idx2d = torch.as_tensor(draw_indices(rng, batch, vocab, kind), device=dev) + offsets
+        g = 0.01 * torch.randn(batch * len(vocab), 16, device=dev, generator=gen)
         rows, seg, is_end = rowwise_segment_sum_slotwise(idx2d, g)
         lr = 0.05
         t_k, a_k = table0.clone(), acc0.clone()
@@ -629,11 +673,12 @@ def phase_kernels(hbm):
         unique = int(is_end.sum())
         ok = untouched_exact and te == 0.0 and ae == 0.0
         emit({"phase": "kernels", "kernel": "table_update", "indices": kind,
-              "positions": rows.numel(), "touched_rows": unique,
+              "table_rows": total, "positions": rows.numel(), "touched_rows": unique,
               "table_max_abs_err": te, "acc_max_abs_err": ae,
               "untouched_rows_bit_exact": untouched_exact, "ok": ok})
         if not ok:
-            raise SystemExit(f"table_update ({kind}) disagrees with its plain version")
+            raise SystemExit(f"table_update ({kind}, {total} rows) disagrees with its "
+                             "plain version")
         if kind == "uniform":
             r_end = rows[is_end].long()
             d = seg[is_end]
@@ -645,8 +690,8 @@ def phase_kernels(hbm):
                 t_k.index_add_(0, r_end, delta)
 
             nbytes = rows.numel() * (4 + 64) + unique * 4 * 64
-            rows_out["table_update"] = kernel_row(
-                "table_update", "nasrec_tpu_torch/csrc/table_update.cu",
+            rows_out[name] = kernel_row(
+                name, "nasrec_tpu_torch/csrc/table_update.cu",
                 "nasrec_tpu/ops/kernels/table_sweep_pallas.py:430", max(te, ae),
                 lambda: table_update.table_update_kernel(t_k, a_k, rows, seg, lr),
                 lambda: table_update.table_update_plain(t_p, a_p, rows, seg, lr),
@@ -654,6 +699,44 @@ def phase_kernels(hbm):
         del t_k, a_k, t_p, a_p, touched, changed, idx2d, g, rows, seg, is_end
         torch.cuda.empty_cache()
     del table0, acc0
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(hbm):
+    """Each kernel against its plain version at the main paths' shapes."""
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows_out = {}
+    for slots in BODY_SLOTS:
+        check_transformer_body(slots, hbm, gen, rows_out)
+        check_attention(slots, hbm, gen, rows_out)
+    for slots in OFF_PATH_SLOTS:
+        off_path = {}
+        check_transformer_body(slots, hbm, gen, off_path)
+        check_attention(slots, hbm, gen, off_path)
+        emit({"phase": "kernels", "off_path_shape": True, "slots": slots,
+              "rows": list(off_path.values())})
+    check_fused_against_unfused(gen)
+    for n in (46, 17, 40, 9):
+        check_dot_scores(n, hbm, gen, rows_out)
+    spec = DATASETS["criteo-kaggle"]
+    check_table_update(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
+
+    # The supernet's shapes: every block's transformer body at S = 64 and its
+    # dot-product at n = 46, batch SN_BATCH in training (rows "_b512") and
+    # SN_EVAL_BATCH in the eval forward ("_b4096"); the table update over the
+    # search-capped table.
+    tr, ev = f"_b{SN_BATCH}", f"_b{SN_EVAL_BATCH}"
+    check_transformer_body(64, hbm, gen, rows_out, SN_BATCH, tr, ("fwd_train", "bwd"), True)
+    check_transformer_body(64, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",), True)
+    check_dot_scores(46, hbm, gen, rows_out, SN_BATCH, tr)
+    check_dot_scores(46, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",))
+    check_table_update(spec.vocab_sizes(SN_VOCAB_CAP), hbm, gen, rows_out, SN_BATCH,
+                       f"table_update{tr}")
     _l2_scratch.clear()      # the main paths' peak memory is read without it
     torch.cuda.empty_cache()
     return rows_out
@@ -778,12 +861,232 @@ def phase_main(space, rows_out):
                 rows_out[name]["launches"] = count
         del model_u
 
-    profile_steps(space, more_k, 3)
+    profile_steps(f"criteo-kaggle/{space}", more_k, 3)
     del model_k, batches, more_k
     torch.cuda.empty_cache()
 
 
-def profile_steps(space, step_fn, steps: int) -> None:
+def supernet_config(vocab):
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig
+
+    return SuperNetConfig(space=OPS_CONFIG_LIB["xlarge"], num_blocks=SN_BLOCKS, num_dense=13,
+                          num_sparse=26, vocab_sizes=tuple(vocab), use_layernorm=True)
+
+
+def suffixed(launches: dict, train: bool) -> dict:
+    """Launch counts of the supernet drive under the names of its rows."""
+    tail = f"_b{SN_BATCH}" if train else f"_b{SN_EVAL_BATCH}"
+    return {k + tail: v for k, v in launches.items()}
+
+
+def phase_supernet(rows_out):
+    """Supernet one-shot training at the canonical configuration: SN_STEPS
+    masked train steps and one eval forward through the kernels, counted step
+    by step, then the same steps from the same weights and masks through the
+    plain versions, and a profile of 3 more kernel-path steps."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.choices import choice_to_masks, full_path_choice
+    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB, SEARCH_MAX_NUM_EMBEDDINGS
+    from nasrec_tpu_torch.models.supernet import supernet_init
+    from nasrec_tpu_torch.sampling import ChoiceSampler, DeviceMaskBuffer
+    from nasrec_tpu_torch.train.loop import make_eval_step
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    dev = torch.device(DEVICE)
+    space = OPS_CONFIG_LIB["xlarge"]
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(SN_VOCAB_CAP)
+    cfg = supernet_config(vocab)
+    t0 = time.perf_counter()
+    model_k = supernet_init(cfg, seed=0, device=dev)
+    model_p = copy.deepcopy(model_k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for n, p in model_k.named_parameters() if n != "embedding.table")
+
+    sampler = ChoiceSampler(space, SN_BLOCKS, strategy="default", anypath_choice="binomial-0.5",
+                            supernet_training_steps=SN_WARMUP, seed=0)
+    buffer = DeviceMaskBuffer(sampler, size=SN_STEPS, device=dev)
+    masks = [buffer() for _ in range(SN_STEPS)]
+    # Which subnets the steps train (read back once, outside the runs).
+    act = buffer.buffer.node_act.cpu().numpy()
+    full = choice_to_masks(full_path_choice(space, SN_BLOCKS), space, SN_BLOCKS)
+    host = [[x.cpu().numpy() for x in buffer.buffer.select(i).astuple()] for i in range(SN_STEPS)]
+    full_steps = [i for i in range(SN_STEPS)
+                  if all(np.array_equal(a, b) for a, b in zip(host[i], full.astuple()))]
+    tf_k, dp_k = space.node_names.index("transformer"), space.node_names.index("dot-product")
+    tf_off = [i for i in range(SN_STEPS) if (act[i, :, tf_k] == 0).any()]
+    dp_off = [i for i in range(SN_STEPS) if (act[i, :, dp_k] == 0).any()]
+
+    rng = np.random.RandomState(1)
+    batches = [(torch.as_tensor(rng.randn(SN_BATCH, 13).astype(np.float32), device=dev),
+                torch.as_tensor(draw_indices(rng, SN_BATCH, vocab, "uniform"), device=dev),
+                torch.as_tensor(rng.randint(0, 2, size=(SN_BATCH, 1)).astype(np.float32),
+                                device=dev))
+               for _ in range(SN_STEPS)]
+    eval_dense = torch.as_tensor(rng.randn(SN_EVAL_BATCH, 13).astype(np.float32), device=dev)
+    eval_cat = torch.as_tensor(draw_indices(rng, SN_EVAL_BATCH, vocab, "uniform"), device=dev)
+    eval_masks = full.to(dev)
+    sched = make_lr_schedule("cosine", 0.12, 10_000, 1_000)
+
+    def run(model, impl):
+        state = init_sparse_train_state(model)
+        step = make_sparse_embedding_train_step(sched, grad_clip=5.0, impl=impl, has_masks=True)
+        losses, times, per_step = [], [], []
+        for (d, c, y), m in zip(batches, masks):
+            reset_launches()
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            state, out = step(state, d, c, y, m)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            per_step.append(read_launches())
+            losses.append(float(out["loss"]))
+        return losses, times, per_step, out["logits"], lambda: step(state, *batches[0], masks[0])
+
+    def evaluate(model, impl):
+        return make_eval_step(impl, has_masks=True)(model, eval_dense, eval_cat, eval_masks)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses_k, times_k, per_step, logits_k, more_k = run(model_k, "auto")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_launches()
+    eval_k = evaluate(model_k, "auto")
+    eval_launches = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses_p, times_p, per_step_p, logits_p, _ = run(model_p, "plain")
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval_p = evaluate(model_p, "plain")
+
+    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
+    param_diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    loss_diff = max(abs(a - b) for a, b in zip(losses_k, losses_p))
+    logit_diff = (logits_k - logits_p).abs().max().item()
+    eval_diff = (eval_k - eval_p).abs().max().item()
+    step_ms = float(np.median(times_k[1:])) * 1e3
+    plain_step_ms = float(np.median(times_p[1:])) * 1e3
+    ok = (SEARCH_MAX_NUM_EMBEDDINGS == SN_VOCAB_CAP and int(sum(vocab)) == SN_ROWS
+          and bool(full_steps and tf_off and dp_off)
+          and all(math.isfinite(x) for x in losses_k + losses_p)
+          and tuple(eval_k.shape) == (SN_EVAL_BATCH, 1) and bool(torch.isfinite(eval_k).all())
+          and loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
+          and eval_diff <= LOGIT_TOL
+          and all(c == SN_STEP_LAUNCHES for c in per_step)
+          and not any(per_step_p) and eval_launches == SN_EVAL_LAUNCHES)
+    emit({"phase": "supernet", "config": "criteo-kaggle xlarge supernet", "blocks": SN_BLOCKS,
+          "use_layernorm": True, "vocab_rows": int(sum(vocab)), "params_outside_table": n_params,
+          "batch": SN_BATCH, "eval_batch": SN_EVAL_BATCH, "steps": SN_STEPS, "init_s": init_s,
+          "full_path_steps": full_steps, "steps_with_a_transformer_gate_0": tf_off,
+          "steps_with_a_dot_product_gate_0": dp_off,
+          "losses": losses_k, "losses_plain": losses_p, "max_loss_diff": loss_diff,
+          "max_logit_diff": logit_diff, "max_param_diff": param_diff,
+          "max_eval_logit_diff": eval_diff,
+          "step_ms": step_ms, "examples_per_s": SN_BATCH / step_ms * 1e3,
+          "step_ms_all": [x * 1e3 for x in times_k], "plain_step_ms": plain_step_ms,
+          "plain_examples_per_s": SN_BATCH / plain_step_ms * 1e3,
+          "plain_step_ms_all": [x * 1e3 for x in times_p],
+          "peak_mem_gb": peak_gb, "plain_peak_mem_gb": plain_peak_gb,
+          "launches_per_step": per_step[0], "launches_equal_every_step":
+          all(c == per_step[0] for c in per_step), "eval_launches": eval_launches, "ok": ok})
+    if not ok:
+        raise SystemExit("the supernet drive failed (see the 'supernet' line)")
+    del model_p
+    totals = {k: SN_STEPS * v for k, v in per_step[0].items()}
+    for name, count in [*suffixed(totals, True).items(),
+                        *suffixed(eval_launches, False).items()]:
+        rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+    profile_steps("criteo-kaggle xlarge supernet", more_k, 3)
+    del model_k, batches, more_k, buffer, masks
+    torch.cuda.empty_cache()
+
+
+def phase_supernet_cli():
+    """nasrec_tpu_torch.cli.train_supernet on synthetic data at 7 blocks and
+    batch 512 with a logging dir, then a resume from its checkpoint; the
+    resumed run's checkpoint reloads into a fresh model with equal eval
+    logits.  (lr 0.02, as in phase_cli: a run this short has no warmup.)"""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.choices import choice_to_masks, full_path_choice
+    from nasrec_tpu_torch.cli import train_supernet
+    from nasrec_tpu_torch.models.supernet import supernet_init
+    from nasrec_tpu_torch.models.transplant import from_jax_params
+    from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint
+    from nasrec_tpu_torch.train.loop import make_eval_step
+
+    tmp = Path(tempfile.mkdtemp(prefix="nasrec_supernet_"))
+    try:
+        base = ["--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
+                "--num_blocks", str(SN_BLOCKS), "--use_layernorm", "1",
+                "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_EVAL_BATCH),
+                "--max_eval_steps", "1", "--display_interval", "1",
+                "--supernet_training_steps", str(SN_WARMUP), "--learning_rate", "0.02"]
+        reset_launches()
+        t0 = time.perf_counter()
+        first = train_supernet.main(base + [
+            "--max_train_steps", str(SN_CLI_STEPS), "--test_interval", str(SN_CLI_STEPS),
+            "--logging_dir", str(tmp / "first")])
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        t0 = time.perf_counter()
+        second = train_supernet.main(base + [
+            "--max_train_steps", str(SN_RESUME_STEPS), "--test_interval",
+            str(SN_RESUME_STEPS), "--logging_dir", str(tmp / "second"),
+            "--checkpoint_path", str(tmp / "first" / "supernet_checkpoint.pkl")])
+        second_s = time.perf_counter() - t0
+        ckpt = load_any_checkpoint(str(tmp / "second" / "supernet_checkpoint.pkl"))
+        files = sorted(p.name for p in (tmp / "first").iterdir())
+
+        cfg = second["cfg"]
+        fresh = supernet_init(cfg, seed=123, device=torch.device(DEVICE))
+        fresh.load_state_dict(from_jax_params(ckpt["params"], cfg))
+        rng = np.random.RandomState(2)
+        dense = torch.as_tensor(rng.randn(SN_EVAL_BATCH, 13).astype(np.float32), device=DEVICE)
+        cat = torch.as_tensor(rng.randint(0, cfg.vocab_sizes[0], size=(SN_EVAL_BATCH, 26))
+                              .astype(np.int32), device=DEVICE)
+        m = choice_to_masks(full_path_choice(cfg.space, SN_BLOCKS), cfg.space,
+                            SN_BLOCKS).to(DEVICE)
+        eval_step = make_eval_step(has_masks=True)
+        reload_diff = (eval_step(fresh, dense, cat, m)
+                       - eval_step(second["state"].model, dense, cat, m)).abs().max().item()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    logs1, logs2 = first["logs"][0], second["logs"][0]
+    # Every train step launches the step's kernels, every eval forward (one
+    # batch at each test point) the forward kernels.
+    expected = {k: v * SN_CLI_STEPS for k, v in SN_STEP_LAUNCHES.items()}
+    for k, v in SN_EVAL_LAUNCHES.items():
+        expected[k] = expected.get(k, 0) + v * len(logs1["test_loss"])
+    ok = (all(math.isfinite(x) for x in logs1["train_loss"] + logs2["train_loss"]
+              + logs1["test_loss"] + logs2["test_loss"])
+          and len(logs1["train_loss"]) == SN_CLI_STEPS
+          and first["state"].step == SN_CLI_STEPS
+          and second["state"].step == int(ckpt["step"]) == SN_CLI_STEPS + SN_RESUME_STEPS
+          and {"configs_args.json", "metrics.jsonl", "supernet_checkpoint.pkl",
+               "train_test_logs.json", "train_test_logs.pickle"} <= set(files)
+          and launches == expected
+          and reload_diff == 0.0)
+    emit({"phase": "supernet_cli", "train_loss": logs1["train_loss"],
+          "test_loss": logs1["test_loss"], "resumed_train_loss": logs2["train_loss"],
+          "resumed_test_loss": logs2["test_loss"], "steps": [first["state"].step,
+                                                              second["state"].step],
+          "files": files, "launches": launches, "reload_max_logit_diff": reload_diff,
+          "seconds": [first_s, second_s], "ok": ok})
+    if not ok:
+        raise SystemExit("the supernet CLI did not train, resume or reload")
+
+
+def profile_steps(arch: str, step_fn, steps: int) -> None:
     """Where a main-path step's device time goes: torch.profiler over a few
     more kernel-path steps (after the comparison above), device time summed
     by kernel, and the device's busy share of the wall time."""
@@ -817,7 +1120,7 @@ def profile_steps(space, step_fn, steps: int) -> None:
     # a suffix: it transposed as it copied) until the kernel took x and yt.
     own = ("dot_fwd_kernel", "dot_bwd_kernel", "table_update_kernel", "body_fwd_kernel",
            "body_bwd_kernel", "attn_fwd_kernel", "attn_bwd_kernel")
-    emit({"phase": "profile", "arch": f"criteo-kaggle/{space}", "steps": steps,
+    emit({"phase": "profile", "arch": arch, "steps": steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_ms_per_step": device_ms,
           "device_busy_share": device_ms * steps / wall_ms if wall_ms else None,
@@ -880,8 +1183,10 @@ def main() -> int:
     rows_out = phase_kernels(hbm_bytes_per_s(smi))
     for space in ("xlarge", "autoctr"):
         phase_main(space, rows_out)
+    phase_supernet(rows_out)
     for space in ("autoctr", "xlarge"):
         phase_cli(space)
+    phase_supernet_cli()
     idle = [name for name, row in rows_out.items() if not row.get("launches")]
     if idle:
         raise SystemExit(f"kernels that no main path launched: {idle}")

@@ -1,12 +1,18 @@
 """Argparse plumbing for the port's CLIs (flag parity with
-`nasrec_tpu/cli/common.py` for the flags the fixed-subnet workload reads,
-plus --device).  The TSV pipeline's flags (--root_dir, --train_split,
---validate_split, --cap_vocab, --train_limit) come with that pipeline."""
+`nasrec_tpu/cli/common.py` for the flags the fixed-subnet and supernet
+workloads read, plus --device).  The TSV pipeline's flags (--root_dir,
+--train_split, --validate_split, --train_limit) come with that pipeline;
+--cap_vocab is read, and matters only there (synthetic data sizes its own
+tables).  Also left out until their layers are ported: the multi-process
+flags (the mesh branch), --report_flops and --profile_dir (profiling), and
+--attention_impl (the port picks kernel or plain version by the tensors'
+device); --loss_function has one value, bce, which is what the step computes."""
 
 from __future__ import annotations
 
 import argparse
 
+from nasrec_tpu_torch.config import SEARCH_MAX_NUM_EMBEDDINGS
 from nasrec_tpu_torch.workloads import DataOptions, TrainOptions
 
 
@@ -17,6 +23,8 @@ def add_data_args(p: argparse.ArgumentParser, train_bs=256, test_bs=16368):
                    help="'synthetic' runs without real data")
     p.add_argument("--train_batch_size", type=int, default=train_bs)
     p.add_argument("--test_batch_size", type=int, default=test_bs)
+    p.add_argument("--cap_vocab", type=int, default=0,
+                   help="1: cap embedding tables at 0.5M rows (search mode)")
 
 
 def add_train_args(p: argparse.ArgumentParser, lr=0.16):
@@ -42,7 +50,12 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
     p.add_argument("--place_embedding_on_cpu", type=int, default=0,
                    help="not yet ported: the host-offload branch")
     p.add_argument("--micro_batches", type=int, default=1)
-    p.add_argument("--ckpt_backend", default="pickle", choices=["pickle", "orbax"])
+    p.add_argument("--ckpt_backend", default="pickle", choices=["pickle", "orbax"],
+                   help="orbax is not yet ported")
+    p.add_argument("--table_update", default="auto", choices=["auto", "scatter", "sweep"],
+                   help="every choice runs the touched-row update (its kernel on the "
+                        "card), the port's counterpart of the TPU's sweep; "
+                        "train_supernet refuses sweep, as the JAX package does")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or the CPU")
 
@@ -53,6 +66,7 @@ def data_options(args) -> DataOptions:
         data_source=args.data_source,
         train_batch_size=args.train_batch_size,
         test_batch_size=args.test_batch_size,
+        vocab_cap=SEARCH_MAX_NUM_EMBEDDINGS if args.cap_vocab == 1 else None,
     )
 
 
@@ -78,5 +92,6 @@ def train_options(args) -> TrainOptions:
         place_embedding_on_cpu=args.place_embedding_on_cpu == 1,
         ckpt_backend=args.ckpt_backend,
         micro_batches=args.micro_batches,
+        table_update=args.table_update,
         device=args.device,
     )

@@ -1,5 +1,5 @@
 """Dataset and search-space configuration (a copy of the JAX package's
-`nasrec_tpu/config.py`, cut to what the fixed-subnet path reads).
+`nasrec_tpu/config.py`, cut to what the fixed-subnet and supernet paths read).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 Values are the reference's (ref: nasrec/utils/config.py:17-41,
@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Sequence, Tuple
+
+# Search-time cap on every table's rows; final (best-model) evaluation lifts
+# it (ref: nasrec/utils/config.py:17-19).
+SEARCH_MAX_NUM_EMBEDDINGS = 500_000
 
 # ref: nasrec/utils/config.py:21-23
 _RAW_NUM_EMBEDDINGS_CRITEO: Tuple[int, ...] = (
@@ -93,6 +97,14 @@ class OpsConfig:
     def num_nodes(self) -> int:
         return len(self.node_names)
 
+    @property
+    def max_dense_dim(self) -> int:
+        return max(self.dense_node_dims)
+
+    @property
+    def max_sparse_dim(self) -> int:
+        return max(self.sparse_node_dims)
+
 
 _DENSE_DIMS = (16, 32, 64, 128, 256, 512, 768, 1024)
 _SPARSE_DIMS = (16, 32, 48, 64)
@@ -106,6 +118,14 @@ OPS_CONFIG_LIB: Dict[str, OpsConfig] = {
         dense_node_dims=_DENSE_DIMS, sparse_node_dims=_SPARSE_DIMS,
         dense_nodes=(0, 1, 2, 3), sparse_nodes=(4, 5), zero_nodes=(),
     ),
+    # ref: nasrec/supernet/supernet.py:151-168
+    "xlarge-zeros": OpsConfig(
+        name="xlarge-zeros",
+        node_names=("linear-2d", "dot-product", "sigmoid-gating", "sum", "zeros-2d",
+                    "transformer", "zeros-3d", "linear-3d"),
+        dense_node_dims=_DENSE_DIMS, sparse_node_dims=_SPARSE_DIMS,
+        dense_nodes=(0, 1, 2, 3, 4), sparse_nodes=(5, 6, 7), zero_nodes=(4, 6),
+    ),
     # NASRec-Small space (ref: nasrec/supernet/supernet.py:169-177)
     "autoctr": OpsConfig(
         name="autoctr",
@@ -113,6 +133,17 @@ OPS_CONFIG_LIB: Dict[str, OpsConfig] = {
         dense_node_dims=_DENSE_DIMS, sparse_node_dims=_SPARSE_DIMS,
         dense_nodes=(0, 1), sparse_nodes=(2,), zero_nodes=(),
     ),
+}
+
+# Path-sampling strategies, each a (macro, micro) pair
+# (ref: nasrec/supernet/supernet.py:188-207).
+PATH_SAMPLING_STRATEGY_LIB: Dict[str, Dict[str, str]] = {
+    "default": {"macro": "any-path", "micro": "single-path"},
+    "single-path": {"macro": "single-path", "micro": "single-path"},
+    "any-path": {"macro": "any-path", "micro": "any-path"},
+    "full-path": {"macro": "full-path", "micro": "full-path"},
+    "fixed-path": {"macro": "fixed-path", "micro": "fixed-path"},
+    "evo-2shot-path": {"macro": "evo-2shot-path", "micro": "evo-2shot-path"},
 }
 
 # Dense output of every block is split into this many pseudo-slots when merged

@@ -51,3 +51,19 @@ class EmbeddingStem(nn.Module):
         idx = self.fused_index(cat_x)
         looked = self.table.index_select(0, idx.reshape(-1))
         return looked.reshape(cat_x.shape[0], -1)
+
+
+def load_embedding_from_checkpoint(model: nn.Module, ckpt_path: str) -> nn.Module:
+    """Seed `model.embedding.table` from another checkpoint's table, in place
+    (parity with seeding from a DLRM checkpoint, ref: nasrec/supernet/
+    supernet.py:368-383).  Shapes must match exactly."""
+    from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint
+
+    src = load_any_checkpoint(ckpt_path)["params"]["embedding"]["table"]
+    dst = model.embedding.table
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"embedding table shape mismatch: ckpt {tuple(src.shape)} "
+                         f"vs model {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.as_tensor(np.asarray(src, dtype=np.float32)))
+    return model

@@ -1,28 +1,38 @@
-"""Carry JAX-package weights (and Adagrad accumulators) into the port.
+"""Carry parameters and Adagrad accumulators between the JAX package's pytree
+and the port's modules, both ways.
 
-The JAX pytree of a fixed subnet holds numpy arrays (after `jax.device_get`)
-under the same names the port's modules use.  Two conventions differ:
+The JAX pytree of a model holds numpy arrays (after `jax.device_get`, or as a
+checkpoint stores them) under the same names the port's modules use: dicts
+where the port has modules, lists where it has a ModuleList (a supernet's
+`blocks` and `nodes`, a fixed model's `blocks`), `str(k)`-keyed dicts where
+it has a ModuleDict (a fixed model's `nodes`), `{}` for a module without
+parameters.  Two conventions differ:
 
   - linear weights: JAX stores [in, out] and applies x @ w; the port stores
     PyTorch's [out, in].  Keys `w`, `w_in`, `w_out` are transposed.
   - names: JAX `w`/`b` -> `weight`/`bias`; LayerNorm `scale` -> `weight`.
 
-The fused table is [vocab, 16] in both.  Arrays are copied
-(`torch.tensor(np.array(x))`), never aliased: a buffer from `device_get` may
-be read-only or shared with the JAX runtime.
+The fused table is [vocab, 16] in both.  Arrays are copied both ways, never
+aliased: a buffer from `device_get` may be read-only or shared with the JAX
+runtime.  Checkpoints of both packages hold this pytree
+(`train/checkpoint.py`), so each package loads the other's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from nasrec_tpu_torch.models.fixed import FixedPlan
+from nasrec_tpu_torch.models.supernet import SuperNetConfig
 
 _TRANSPOSED = {"w": "weight", "w_in": "w_in", "w_out": "w_out"}
 _RENAMED = {"b": "bias", "scale": "weight"}
+
+ModelSpec = Union[FixedPlan, SuperNetConfig]
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
@@ -52,19 +62,54 @@ def state_dict_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def from_jax_params(params_np: Dict[str, Any], plan: FixedPlan) -> Dict[str, torch.Tensor]:
-    """JAX fixed-subnet params (numpy leaves) -> the port's state_dict.
+def from_jax_params(params_np: Dict[str, Any], spec: ModelSpec) -> Dict[str, torch.Tensor]:
+    """JAX params (numpy leaves) of a fixed subnet (`spec` a FixedPlan) or a
+    supernet (`spec` a SuperNetConfig) -> the port's state_dict.
 
     Load with `model.load_state_dict(sd)` (strict), which also checks that the
-    two packages built the same parameter set for `plan`."""
+    two packages built the same parameter set."""
     sd = state_dict_from_jax(params_np)
-    if sd["embedding.table"].shape != (sum(plan.vocab_sizes), plan.emb_dim):
+    rows = sum(spec.vocab_sizes)
+    if tuple(sd["embedding.table"].shape) != (rows, spec.emb_dim):
         raise ValueError(f"embedding table {tuple(sd['embedding.table'].shape)} does "
-                         f"not match the plan's vocab ({sum(plan.vocab_sizes)} rows)")
+                         f"not match the model's vocab ({rows} rows of {spec.emb_dim})")
     return sd
 
 
-def from_jax_opt_state(opt_np: Dict[str, Any], plan: FixedPlan) -> Dict[str, torch.Tensor]:
+def from_jax_opt_state(opt_np: Dict[str, Any], spec: ModelSpec) -> Dict[str, torch.Tensor]:
     """JAX Adagrad accumulators (a pytree mirroring the params) -> the port's
     optimizer state, keyed by parameter name."""
-    return from_jax_params(opt_np, plan)
+    return from_jax_params(opt_np, spec)
+
+
+def _jax_leaf(module: nn.Module, name: str, value: torch.Tensor):
+    arr = value.detach().to("cpu", torch.float32).numpy()
+    if isinstance(module, nn.LayerNorm):
+        return {"weight": "scale", "bias": "bias"}[name], arr.copy()
+    if name in ("weight", "w_in", "w_out"):
+        return ("w" if name == "weight" else name), np.ascontiguousarray(arr.T)
+    return ("b" if name == "bias" else name), arr.copy()
+
+
+def _to_jax_tree(module: nn.Module, values: Mapping[str, torch.Tensor], prefix: str):
+    if isinstance(module, nn.ModuleList):
+        return [_to_jax_tree(child, values, f"{prefix}{i}.") for i, child in enumerate(module)]
+    out: Dict[str, Any] = {}
+    for name, _ in module.named_parameters(recurse=False):
+        key, arr = _jax_leaf(module, name, values[prefix + name])
+        out[key] = arr
+    for name, child in module.named_children():
+        out[name] = _to_jax_tree(child, values, f"{prefix}{name}.")
+    return out
+
+
+def to_jax_params(model: nn.Module) -> Dict[str, Any]:
+    """The port's parameters -> the JAX package's pytree of numpy arrays
+    (`[in, out]` weights, `w`/`b`/`scale`, lists and dicts as JAX has them)."""
+    return _to_jax_tree(model, dict(model.named_parameters()), "")
+
+
+def to_jax_opt_state(model: nn.Module, opt_state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's Adagrad accumulators (keyed by parameter name) -> the JAX
+    package's opt_state pytree, which mirrors its params."""
+    return _to_jax_tree(model, opt_state, "")

@@ -22,18 +22,23 @@ projection, the body, has three forms that compute the same function:
     card), the counterpart of `_transformer_bmajor_unfused`.  Tests and the
     on-card smoke run reach it; no model selects it.
 
-Slot masks belong to the supernet and are applied outside the body; the fixed
-path has none.
+In the supernet a slot mask multiplies the projection's output before the
+body and the body's output after it (ref: modules.py:653-662, :678-686), in
+all three forms; masked slots stay in the attention as zero vectors.  The
+mask is multiplied into the [B, E, S] projection output, so the body still
+gets its transposed view.  The fixed path passes no mask.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from nasrec_tpu_torch.config import LN_INIT, NUM_MHA_HEADS
-from nasrec_tpu_torch.ops.common import LayerNorm, Linear, xavier_uniform_
+from nasrec_tpu_torch.ops.common import LayerNorm, Linear, apply_mask, xavier_uniform_
 from nasrec_tpu_torch.ops.kernels.attention import tiny_head_attention
 from nasrec_tpu_torch.ops.kernels.transformer_body import transformer_body
 
@@ -91,17 +96,20 @@ class Transformer(nn.Module):
                 self.fc_ln.weight, self.fc_ln.bias)
 
     def forward(self, sparse: torch.Tensor, emb_dim: int,
-                num_heads: int = NUM_MHA_HEADS, impl: str = "auto") -> torch.Tensor:
+                num_heads: int = NUM_MHA_HEADS, impl: str = "auto",
+                slot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, S_in*E] slot-major flat -> [B, out_slots*E]."""
         b = sparse.shape[0]
         xt = sparse.reshape(b, self.in_slots, emb_dim).transpose(1, 2)  # [B, E, S_in]
         xt = self.proj(xt)
         if self.proj_ln is not None:
             xt = self.proj_ln(xt)
+        xt = apply_mask(xt, slot_mask)              # the slot axis is last here
         x = xt.transpose(1, 2)                      # [B, S, E], a view: no copy
         if self.fused and impl != "plain":
-            return transformer_body(x, self.body_params(), num_heads, impl).reshape(b, -1)
-        x = self.attn_ln(self.mha(x, num_heads, impl) + x)   # residual + LN (ref :666-668)
-        h = self.fc2(F.relu(self.fc1(x)))                    # hard-coded relu (ref :671)
-        x = self.fc_ln(x + h)                                # residual + LN (ref :673-675)
-        return x.reshape(b, -1)
+            x = transformer_body(x, self.body_params(), num_heads, impl)
+        else:
+            x = self.attn_ln(self.mha(x, num_heads, impl) + x)   # residual + LN (ref :666-668)
+            h = self.fc2(F.relu(self.fc1(x)))                    # hard-coded relu (ref :671)
+            x = self.fc_ln(x + h)                                # residual + LN (ref :673-675)
+        return apply_mask(x, slot_mask, axis=1).reshape(b, -1)

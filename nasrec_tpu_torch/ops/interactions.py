@@ -4,10 +4,14 @@
 Projection elision follows the reference's LazyLinear rules, decided at init
 from the known widths (ref: nasrec/supernet/modules.py:339-389, :488-495,
 :583-586, :739-743), so fixed subnets have the reference's exact parameter
-set.  Absent projections are `None` attributes.
+set.  Absent projections are `None` attributes.  In the supernet a
+`dim_mask` multiplies each node's output last; the fixed path passes none.
+The dot-product kernel never sees the mask: it takes x and yt as they lie.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 from nasrec_tpu_torch.ops.common import (
     LayerNorm,
     Linear,
+    apply_mask,
     flat_to_emajor,
     linear_apply_e,
     ln_apply_e,
@@ -64,7 +69,8 @@ class DotProduct(nn.Module):
         self.out_ln = ln(out_dim)                     # final LN iff layernorm (ref :391-392)
 
     def forward(self, dense: torch.Tensor, sparse: torch.Tensor, in_slots: int,
-                emb_dim: int, impl: str = "auto") -> torch.Tensor:
+                emb_dim: int, impl: str = "auto",
+                dim_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """dense [B, D], sparse [B, S*E] slot-major flat -> [B, out_dim]."""
         x = dense
         if self.dense_proj is not None:
@@ -86,7 +92,7 @@ class DotProduct(nn.Module):
             out = self.out_proj(out)
         if self.out_ln is not None:
             out = self.out_ln(out)
-        return out
+        return apply_mask(out, dim_mask)
 
 
 def pad_align_2d(left: torch.Tensor, right: torch.Tensor):
@@ -110,14 +116,14 @@ class Sum(nn.Module):
                      if width != out_dim else None)                  # ref :488-491
         self.ln = LayerNorm(out_dim, device=device) if use_layernorm else None
 
-    def forward(self, left, right):
+    def forward(self, left, right, dim_mask: Optional[torch.Tensor] = None):
         left, right = pad_align_2d(left, right)
         out = left + right
         if self.proj is not None:
             out = self.proj(out)
         if self.ln is not None:
             out = self.ln(out)
-        return out
+        return apply_mask(out, dim_mask)
 
 
 class SigmoidGating(nn.Module):
@@ -133,14 +139,14 @@ class SigmoidGating(nn.Module):
                      if width != out_dim else None)                  # ref :583-586
         self.ln = LayerNorm(out_dim, device=device) if use_layernorm else None
 
-    def forward(self, left, right):
+    def forward(self, left, right, dim_mask: Optional[torch.Tensor] = None):
         left, right = pad_align_2d(left, right)
         out = torch.sigmoid(self.self_linear(left)) * right
         if self.proj is not None:
             out = self.proj(out)
         if self.ln is not None:
             out = self.ln(out)
-        return out
+        return apply_mask(out, dim_mask)
 
 
 class FM3D(nn.Module):
@@ -156,7 +162,8 @@ class FM3D(nn.Module):
             if use_layernorm:
                 self.ln = LayerNorm(out_dim, device=device)
 
-    def forward(self, sparse: torch.Tensor, in_slots: int, emb_dim: int) -> torch.Tensor:
+    def forward(self, sparse: torch.Tensor, in_slots: int, emb_dim: int,
+                dim_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sparse [B, S*E] slot-major flat -> [B, out_dim]."""
         x = sparse.reshape(sparse.shape[0], in_slots, emb_dim)
         ix = torch.square(x.sum(dim=1)) - torch.square(x).sum(dim=1)
@@ -164,4 +171,4 @@ class FM3D(nn.Module):
             ix = self.proj(ix)
             if self.ln is not None:
                 ix = self.ln(ix)
-        return ix
+        return apply_mask(ix, dim_mask)

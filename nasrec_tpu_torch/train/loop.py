@@ -1,10 +1,12 @@
 """Train/eval loops (port of `nasrec_tpu/train/loop.py`, the parts the
-fixed-subnet workload runs).
+fixed-subnet and supernet workloads run).
 
 Reference hot loop: nasrec/utils/train_utils.py:181-390.  Metrics are read
 back to the host only on display and test boundaries, so the card keeps
 working while the host prepares the next batch.  A NaN loss returns the
 reference's sentinel logs (loss 999.99 / AUROC -1, ref: train_utils.py:294-301).
+In supernet mode a `sampler` gives every train step its masks, and
+`eval_masks` (masks, or a callable sampled once per eval batch) the eval.
 """
 
 from __future__ import annotations
@@ -34,11 +36,13 @@ def snapshot_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
 
 
-def make_eval_step(impl: str = "auto") -> Callable:
-    """eval_step(model, dense, cat) -> logits, without autograd."""
+def make_eval_step(impl: str = "auto", has_masks: bool = False) -> Callable:
+    """eval_step(model, dense, cat[, masks]) -> logits, without autograd."""
 
     @torch.no_grad()
-    def eval_step(model, dense, cat):
+    def eval_step(model, dense, cat, masks=None):
+        if has_masks:
+            return model(dense, cat, masks, impl)
         return model(dense, cat, impl)
 
     return eval_step
@@ -49,14 +53,18 @@ def evaluate_one_epoch(
     model,
     test_iter: Iterable,
     *,
+    masks=None,
     max_steps: int = -1,
 ) -> Tuple[float, float, float]:
-    """Full-split eval -> (accuracy, auroc, logloss) (ref: train_utils.py:129-178)."""
+    """Full-split eval -> (accuracy, auroc, logloss) (ref: train_utils.py:129-178).
+    `masks`: None (fixed mode), masks, or a callable sampled once per batch."""
     all_logits, all_labels = [], []
     for i, (dense, cat, y) in enumerate(test_iter):
         if max_steps != -1 and i >= max_steps:
             break
-        all_logits.append(eval_step(model, dense, cat).float().cpu().numpy().ravel())
+        m = masks() if callable(masks) else masks
+        logits = eval_step(model, dense, cat) if m is None else eval_step(model, dense, cat, m)
+        all_logits.append(logits.float().cpu().numpy().ravel())
         all_labels.append(y.cpu().numpy().ravel())
     if not all_logits:
         raise ValueError(
@@ -82,6 +90,8 @@ def train_and_test_one_epoch(
     make_test_iter: Callable[[], Iterable],
     *,
     epoch: int = 0,
+    sampler: Optional[Callable] = None,   # () -> masks for one step (supernet mode)
+    eval_masks=None,                       # masks, or () -> masks per eval batch
     display_interval: int = 100,
     test_interval: int = 2000,
     max_train_steps: int = -1,
@@ -89,6 +99,7 @@ def train_and_test_one_epoch(
     test_only_at_last_step: bool = False,
     keep_best: bool = True,
     log_fn: Callable[[str], None] = print,
+    metrics_writer=None,                   # optional train.logging.MetricsWriter
 ) -> Tuple[TrainState, Dict[str, list], Optional[Any]]:
     """One epoch of interleaved train/eval -> (state, logs, best_params)."""
     logs: Dict[str, list] = {
@@ -103,7 +114,10 @@ def train_and_test_one_epoch(
     batch_num = -1
 
     for batch_num, (dense, cat, y) in enumerate(train_iter):
-        state, metrics = train_step(state, dense, cat, y)
+        if sampler is not None:
+            state, metrics = train_step(state, dense, cat, y, sampler())
+        else:
+            state, metrics = train_step(state, dense, cat, y)
         examples += len(y)
 
         is_last = batch_num == max_train_steps - 1
@@ -132,18 +146,29 @@ def train_and_test_one_epoch(
             logs["train_Accuracy"].append(train_acc)
             logs["epoch"].append(epoch)
             logs["iters"].append(batch_num)
+            if metrics_writer is not None:
+                # Tag scheme of the reference (train_utils.py:334-338).
+                metrics_writer.scalar(f"Loss/train/epoch{epoch}", loss, batch_num)
+                metrics_writer.scalar(f"Acc/train/epoch{epoch}", train_acc, batch_num)
+                metrics_writer.scalar(f"AUROC/train/epoch{epoch}", train_auroc, batch_num)
+                metrics_writer.scalar(f"lr/epoch{epoch}", float(metrics["lr"]), batch_num)
 
         if (batch_num % test_interval == 0 or is_last) and (
                 not test_only_at_last_step or is_last):
             t0 = time.time()
             acc, auroc, tloss = evaluate_one_epoch(
-                eval_step, state.model, make_test_iter(), max_steps=max_eval_steps,
+                eval_step, state.model, make_test_iter(), masks=eval_masks,
+                max_steps=max_eval_steps,
             )
             log_fn(f"TEST acc {acc:.4f} auroc {auroc:.4f} loss {tloss:.6f} "
                    f"({time.time() - t0:.1f}s)")
             logs["test_loss"].append(tloss)
             logs["test_AUROC"].append(auroc)
             logs["test_Accuracy"].append(acc)
+            if metrics_writer is not None:
+                metrics_writer.scalar(f"Loss/test/epoch{epoch}", tloss, batch_num)
+                metrics_writer.scalar(f"Acc/test/epoch{epoch}", acc, batch_num)
+                metrics_writer.scalar(f"AUROC/test/epoch{epoch}", auroc, batch_num)
             if keep_best and tloss < best_test_loss:
                 best_test_loss = tloss
                 best_params = snapshot_params(state.model)

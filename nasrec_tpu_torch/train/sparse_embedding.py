@@ -12,6 +12,10 @@ updates only the touched rows of the table and its Adagrad accumulator:
 which is torch's dense Adagrad exactly, global-norm clip included (the
 clip sees each row's summed gradient once).  On the card the update is the
 hand-written kernel of ops/kernels/table_update.py.
+
+With `has_masks=True` (the supernet) the step takes the choice's masks as a
+`ChoiceMasks` of device tensors or as the `(buffer, idx)` pair that
+`sampling.DeviceMaskBuffer` hands out, selected on the device.
 """
 
 from __future__ import annotations
@@ -86,15 +90,22 @@ def make_sparse_embedding_train_step(
     l2_reg: float = 0.0,            # applied to non-embedding params only
     l2_exclude: Optional[str] = None,
     impl: str = "auto",
+    has_masks: bool = False,
 ):
-    """step(state, dense, cat, y) -> (state, metrics), updating in place.
+    """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
-    `state.model` is a FixedModel whose `embedding.table` is trained here by
-    the touched-row update; every other parameter by dense Adagrad.
-    impl='auto' runs the hand-written kernels on the card and their plain
-    versions on the CPU; impl='plain' names the plain versions."""
+    `state.model` is a FixedModel (or, with has_masks=True, a SuperNet that
+    takes `masks`) whose `embedding.table` is trained here by the touched-row
+    update; every other parameter by dense Adagrad.  impl='auto' runs the
+    hand-written kernels on the card and their plain versions on the CPU;
+    impl='plain' names the plain versions."""
 
-    def step(state: TrainState, dense, cat, y):
+    def step(state: TrainState, dense, cat, y, masks=None):
+        if has_masks and masks is None:
+            raise ValueError("this step was made with has_masks=True: pass masks")
+        if isinstance(masks, tuple):      # (device mask buffer, index)
+            buffer, buf_idx = masks
+            masks = buffer.select(buf_idx)
         model = state.model
         table = model.embedding.table
         rest = [(n, p) for n, p in model.named_parameters() if n != TABLE]
@@ -104,7 +115,10 @@ def make_sparse_embedding_train_step(
             looked = table.index_select(0, idx.reshape(-1))          # [B*S, E]
         e = looked.shape[-1]
         stem = looked.reshape(b, s * e).requires_grad_(True)
-        logits = model.forward_embedded(dense, stem, impl)
+        if has_masks:
+            logits = model.forward_embedded(dense, stem, masks, impl)
+        else:
+            logits = model.forward_embedded(dense, stem, impl)
         bce = bce_with_logits(logits, y)
         l2 = l2_penalty(rest, l2_reg, l2_exclude)
         # A block whose outputs no later block reads leaves its parameters

@@ -1,11 +1,15 @@
-"""Fixed-subnet training as a library function (port of
-`nasrec_tpu/workloads.py :: train_fixed_subnet`, single-device branch).
+"""Fixed-subnet and supernet training as library functions (port of
+`nasrec_tpu/workloads.py :: train_fixed_subnet` and `train_supernet`,
+single-device branches).
 
 Ported: the sparse-embedding path (Adagrad, wd = 0) on one device, on
-synthetic data.  Not yet ported, and rejected up front with an error that
-says so: the mesh branch, the host-offload branch, orbax checkpoints, the
-dense-gradient step (other optimizers or wd > 0), micro-batches, bf16
-compute, and the TSV data pipeline.
+synthetic data; supernet training with every path-sampling strategy, resume
+from a checkpoint, evo-2shot candidates, a pretrained table and both eval
+paths; checkpoints (pickle, in the JAX package's layout, so each package
+loads the other's) and `metrics.jsonl`.  Not yet ported, and rejected up
+front with an error that says so: the mesh branch, the host-offload branch,
+orbax checkpoints, the dense-gradient step (other optimizers or wd > 0),
+micro-batches, bf16 compute, and the TSV data pipeline.
 """
 
 from __future__ import annotations
@@ -16,15 +20,23 @@ import os
 import pickle
 from typing import Any, Callable, Dict, Optional
 
+from nasrec_tpu_torch.choices import choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
 from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
+from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint
 from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
-from nasrec_tpu_torch.train.loop import (
-    make_eval_step,
-    snapshot_params,
-    train_and_test_one_epoch,
+from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+from nasrec_tpu_torch.models.transplant import (
+    from_jax_opt_state,
+    from_jax_params,
+    to_jax_opt_state,
+    to_jax_params,
 )
+from nasrec_tpu_torch.sampling import ChoiceSampler, DeviceMaskBuffer
+from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint, save_checkpoint_any
+from nasrec_tpu_torch.train.logging import MetricsWriter
+from nasrec_tpu_torch.train.loop import make_eval_step, train_and_test_one_epoch
 from nasrec_tpu_torch.train.optim import make_lr_schedule
 from nasrec_tpu_torch.train.sparse_embedding import (
     init_sparse_train_state,
@@ -38,6 +50,7 @@ class DataOptions:
     data_source: str = "tsv"          # tsv | synthetic
     train_batch_size: int = 256
     test_batch_size: int = 16368
+    vocab_cap: Optional[int] = None   # SEARCH_MAX_NUM_EMBEDDINGS during search (TSV)
     synthetic_train_examples: int = 65536
     synthetic_test_examples: int = 8192
     # Per-slot table size for synthetic data; must cover the synthetic index
@@ -68,6 +81,9 @@ class TrainOptions:
     place_embedding_on_cpu: bool = False
     ckpt_backend: str = "pickle"
     micro_batches: int = 1
+    # Every choice runs the touched-row update (the kernel on the card);
+    # train_supernet refuses "sweep", as the JAX package does.
+    table_update: str = "auto"
     device: str = "cuda"
 
 
@@ -107,6 +123,29 @@ def _max_eval_steps(data: DataOptions, train: TrainOptions) -> int:
     return -1
 
 
+def _spec_and_vocab(data: DataOptions):
+    spec = DATASETS[data.dataset]
+    if data.data_source == "synthetic":
+        return spec, tuple([data.synthetic_vocab] * spec.num_sparse)
+    return spec, spec.vocab_sizes(data.vocab_cap)
+
+
+def _make_iterators(data: DataOptions, device):
+    spec = DATASETS[data.dataset]
+    sspec = SyntheticSpec(num_dense=spec.num_dense, num_sparse=spec.num_sparse,
+                          vocab=data.synthetic_vocab)
+
+    def train_iter():
+        return synthetic_batches(data.synthetic_train_examples, data.train_batch_size,
+                                 sspec, seed=0, loop=True, device=device)
+
+    def test_iter():
+        return synthetic_batches(data.synthetic_test_examples, data.test_batch_size,
+                                 sspec, seed=1, device=device)
+
+    return train_iter, test_iter
+
+
 def train_fixed_subnet(
     choice_payload: Dict[str, Any],
     data: DataOptions = DataOptions(),
@@ -119,8 +158,7 @@ def train_fixed_subnet(
     """Train one fixed subnet from scratch (ref: main_train.py:77-221)."""
     _validate(data, train)
     device = resolve_device(train.device)
-    spec = DATASETS[data.dataset]
-    vocab = tuple([data.synthetic_vocab] * spec.num_sparse)
+    spec, vocab = _spec_and_vocab(data)
     choice = {"macro": choice_payload["macro"], "micro": choice_payload["micro"]}
     space = OPS_CONFIG_LIB[choice_payload.get("config", "xlarge")]
     num_blocks = int(choice_payload.get("num_blocks", len(choice["macro"])))
@@ -142,18 +180,9 @@ def train_fixed_subnet(
         l2_exclude=train.no_reg_param_name,
     )
     eval_step = make_eval_step()
+    train_iter, test_iter = _make_iterators(data, device)
 
-    sspec = SyntheticSpec(num_dense=spec.num_dense, num_sparse=spec.num_sparse,
-                          vocab=data.synthetic_vocab)
-
-    def train_iter():
-        return synthetic_batches(data.synthetic_train_examples, data.train_batch_size,
-                                 sspec, seed=0, loop=True, device=device)
-
-    def test_iter():
-        return synthetic_batches(data.synthetic_test_examples, data.test_batch_size,
-                                 sspec, seed=1, device=device)
-
+    writer = MetricsWriter(train.logging_dir)
     epoch_logs, best = [], None
     for epoch in range(train.num_epochs):
         state, logs, best_ep = train_and_test_one_epoch(
@@ -165,24 +194,161 @@ def train_fixed_subnet(
             max_eval_steps=_max_eval_steps(data, train),
             test_only_at_last_step=train.test_only_at_last_step,
             log_fn=log_fn,
+            metrics_writer=writer,
         )
         epoch_logs.append(logs)
         if best_ep is not None:
             best = best_ep
+    writer.close()
 
-    if train.logging_dir:
-        _dump_logs(train.logging_dir, epoch_logs,
-                   {"choice": choice_payload, "data": dataclasses.asdict(data),
-                    "train": dataclasses.asdict(train)},
-                   {"params": snapshot_params(state.model), "step": state.step})
+    _dump_logs(train.logging_dir, epoch_logs,
+               {"choice": choice_payload, "data": dataclasses.asdict(data),
+                "train": dataclasses.asdict(train)},
+               {"params": to_jax_params(state.model), "step": state.step},
+               ckpt_backend=train.ckpt_backend)
     return {"state": state, "logs": epoch_logs, "best_params": best, "plan": plan}
 
 
-def _dump_logs(logging_dir: str, epoch_logs, options: Dict, ckpt_payload: Dict) -> None:
-    """configs_args.json, train_test_logs.{json,pickle} and checkpoint.pkl
-    (parameters by their state_dict names, as host tensors), as the JAX
-    package writes them; the checkpoint is written to a temporary name and
-    renamed into place."""
+@dataclasses.dataclass
+class SupernetOptions:
+    config: str = "xlarge"
+    num_blocks: int = 7
+    use_layernorm: bool = True
+    strategy: str = "default"
+    anypath_choice: str = "binomial-0.5"
+    supernet_training_steps: int = 15000
+    checkpoint_path: Optional[str] = None   # resume
+    # Candidate list for 'evo-2shot-path' (ref flag: train_supernet.py:305).
+    evo_2shot_candidates_path: Optional[str] = None
+    # Seed the embedding table from a donor checkpoint (ref:
+    # train_supernet.py:413, supernet.py:368-383).
+    pretrained_emb_path: Optional[str] = None
+    # "sampled" (the reference's eval: a random subnet per eval batch, ref:
+    # train_utils.py:144-147) or "full-path" (every node active).
+    eval_path: str = "sampled"
+    use_final_sigmoid: bool = False         # ref: supernet.py:284-287
+    last_n_blocks_out: int = 1              # ref constructor param: supernet.py:226
+
+
+def train_supernet(
+    sn: SupernetOptions = SupernetOptions(),
+    data: DataOptions = DataOptions(train_batch_size=512, test_batch_size=4096),
+    train: TrainOptions = TrainOptions(learning_rate=0.12),
+    log_fn: Callable[[str], None] = print,
+) -> Dict[str, Any]:
+    """One-shot supernet training (ref: train_supernet.py:66-238): every step
+    samples a subnet on the host, and one train step serves every subnet
+    through masks selected on the device."""
+    if train.table_update not in ("auto", "scatter"):
+        raise ValueError("train_supernet supports table_update='scatter' only "
+                         "(sweep targets large-batch fixed-subnet training)")
+    _validate(data, train)
+    device = resolve_device(train.device)
+    spec, vocab = _spec_and_vocab(data)
+    space = OPS_CONFIG_LIB[sn.config]
+    cfg = SuperNetConfig(
+        space=space, num_blocks=sn.num_blocks, num_dense=spec.num_dense,
+        num_sparse=spec.num_sparse, vocab_sizes=vocab,
+        use_layernorm=sn.use_layernorm, activation=train.activation,
+        use_final_sigmoid=sn.use_final_sigmoid, last_n_blocks_out=sn.last_n_blocks_out,
+    )
+    model = supernet_init(cfg, train.seed, device)
+    if sn.pretrained_emb_path:
+        load_embedding_from_checkpoint(model, sn.pretrained_emb_path)
+        log_fn(f"seeded embedding table from {sn.pretrained_emb_path}")
+
+    steps_per_epoch = _train_steps_per_epoch(data, train)
+    num_train_steps = steps_per_epoch * train.num_epochs
+    num_warmup = steps_per_epoch // 10 // train.num_epochs
+    sched = make_lr_schedule(train.lr_schedule, train.learning_rate,
+                             num_train_steps, num_warmup)
+    state = init_sparse_train_state(model)
+    start_step = 0
+    if sn.checkpoint_path:
+        ckpt = load_any_checkpoint(sn.checkpoint_path)
+        model.load_state_dict(from_jax_params(ckpt["params"], cfg))
+        if ckpt.get("opt_state") is not None:
+            acc = from_jax_opt_state(ckpt["opt_state"], cfg)
+            for name, a in state.opt_state.items():
+                a.copy_(acc[name])
+        start_step = int(ckpt.get("step", 0))
+        log_fn(f"resumed from {sn.checkpoint_path} at step {start_step}")
+    state.step = start_step
+
+    step = make_sparse_embedding_train_step(
+        sched, grad_clip=train.grad_clip, l2_reg=train.wd,
+        l2_exclude=train.no_reg_param_name, has_masks=True,
+    )
+    eval_step = make_eval_step(has_masks=True)
+    candidates = None
+    if sn.evo_2shot_candidates_path:
+        with open(sn.evo_2shot_candidates_path, "rb") as f:
+            candidates = pickle.load(f)
+        log_fn(f"loaded {len(candidates)} evo-2shot candidates")
+    sampler = ChoiceSampler(
+        space, sn.num_blocks, strategy=sn.strategy, anypath_choice=sn.anypath_choice,
+        supernet_training_steps=sn.supernet_training_steps, seed=train.seed,
+        candidate_choices=candidates,
+    )
+    sampler.step_counter = start_step - 1
+    if sn.eval_path == "sampled":
+        # The candidates go to the eval sampler too: without them an
+        # evo-2shot-path eval has nothing to draw from (the JAX package's
+        # eval sampler takes none, and raises there).
+        eval_sampler = ChoiceSampler(space, sn.num_blocks, strategy=sn.strategy,
+                                     anypath_choice=sn.anypath_choice, seed=train.seed + 1,
+                                     candidate_choices=candidates)
+        eval_masks = lambda: choice_to_masks(eval_sampler(), space, sn.num_blocks).to(device)
+    else:
+        eval_masks = choice_to_masks(full_path_choice(space, sn.num_blocks), space,
+                                     sn.num_blocks).to(device)
+    train_iter, test_iter = _make_iterators(data, device)
+    # Refilled `size` draws at a time, as in the JAX package, so that the
+    # sampler's counter (and its warmup) advance alike in both.
+    mask_buffer = DeviceMaskBuffer(sampler, size=min(256, max(steps_per_epoch, 1)),
+                                   device=device)
+
+    writer = MetricsWriter(train.logging_dir)
+    epoch_logs = []
+    for epoch in range(train.num_epochs):
+        state, logs, _ = train_and_test_one_epoch(
+            step, eval_step, state, train_iter(), test_iter,
+            epoch=epoch,
+            sampler=mask_buffer,
+            eval_masks=eval_masks,
+            display_interval=train.display_interval,
+            test_interval=train.test_interval,
+            max_train_steps=steps_per_epoch,
+            max_eval_steps=_max_eval_steps(data, train),
+            test_only_at_last_step=train.test_only_at_last_step,
+            keep_best=False,
+            log_fn=log_fn,
+            metrics_writer=writer,
+        )
+        epoch_logs.append(logs)
+    writer.close()
+
+    ckpt_payload = {
+        "params": to_jax_params(state.model),
+        "opt_state": to_jax_opt_state(state.model, state.opt_state),
+        "step": int(state.step),
+        "supernet": dataclasses.asdict(sn),
+    }
+    _dump_logs(train.logging_dir, epoch_logs,
+               {"supernet": dataclasses.asdict(sn), "data": dataclasses.asdict(data),
+                "train": dataclasses.asdict(train)},
+               ckpt_payload, ckpt_name="supernet_checkpoint.pkl",
+               ckpt_backend=train.ckpt_backend)
+    return {"state": state, "logs": epoch_logs, "cfg": cfg}
+
+
+def _dump_logs(logging_dir: Optional[str], epoch_logs, options: Dict, ckpt_payload: Dict,
+               ckpt_name: str = "checkpoint.pkl", ckpt_backend: str = "pickle") -> None:
+    """configs_args.json, train_test_logs.{json,pickle} and the checkpoint
+    (`train/checkpoint.py`: the JAX package's layout), as the JAX package
+    writes them; nothing without a logging dir."""
+    if not logging_dir:
+        return
     os.makedirs(logging_dir, exist_ok=True)
     with open(os.path.join(logging_dir, "configs_args.json"), "w") as f:
         json.dump(options, f, indent=2, default=str)
@@ -190,7 +356,4 @@ def _dump_logs(logging_dir: str, epoch_logs, options: Dict, ckpt_payload: Dict) 
         pickle.dump(epoch_logs, f)
     with open(os.path.join(logging_dir, "train_test_logs.json"), "w") as f:
         json.dump(epoch_logs, f)
-    path = os.path.join(logging_dir, "checkpoint.pkl")
-    with open(path + ".tmp", "wb") as f:
-        pickle.dump(ckpt_payload, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(path + ".tmp", path)
+    save_checkpoint_any(os.path.join(logging_dir, ckpt_name), ckpt_payload, ckpt_backend)

@@ -6,7 +6,10 @@ the launch shapes the defaults do not use, an empty update, a position count
 that fills no whole block, sentinel rows, row_offset shards and a hot row
 repeated at many positions;
 the transformer body and the attention core at batches of 1, 37 and 2048,
-the body with x in both layouts its kernels read in place.
+the body with x in both layouts its kernels read in place; the body at S = 64
+and the dot-product at n = 46 (the supernet's shapes) at batches of 1, 7, 33,
+512 and 4096; the supernet's forward and one masked train step at batch 512,
+kernels against plain versions.
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -23,7 +26,9 @@ group.  The transformer body and the attention core: forward rtol 1e-5 /
 atol 1e-5, input gradients rtol 2e-4 / atol 2e-4 (the tolerances the JAX
 package holds its TPU kernels to), parameter gradients, which sum over every
 position of the batch, 2e-4 of the gradient's largest magnitude.  The saved
-softmax statistic (a base-2 log-sum-exp) rtol 1e-5 / atol 1e-5.
+softmax statistic (a base-2 log-sum-exp) rtol 1e-5 / atol 1e-5.  The
+supernet (seven blocks, f32): logits rtol 1e-4 / atol 1e-4, and after one
+train step the loss within 1e-4 and every parameter within 1e-4 (absolute).
 """
 
 import pytest
@@ -271,3 +276,79 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="16-byte"):           # a row is moved in 16-byte pieces
         table_update.table_update(torch.zeros(161, device=dev)[1:].view(10, 16), table, rows,
                                   seg, 0.1)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 33, 512, 4096])
+def test_supernet_shapes_body_and_dot_product_match_plain(dev, batch):
+    """The supernet's kernel shapes at its training (512) and eval (4096)
+    batches, and at batches that fill a grid of a few blocks or leave a
+    partial last tile."""
+    x, params, dout = _body_case(dev, batch, 64, batch + 64, "slot_minor")
+    out_k, dx_k, dp_k = _body_grads(x, params, dout, "auto")
+    out_p, dx_p, dp_p = _body_grads(x, params, dout, "plain")
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx_k, dx_p, rtol=2e-4, atol=2e-4)
+    for name, gk, gp in zip(transformer_body.PARAM_NAMES, dp_k, dp_p):
+        assert (gk - gp).abs().max().item() <= 2e-4 * max(1.0, gp.abs().max().item()), name
+
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    xd = torch.randn(batch, 16, device=dev, generator=gen)
+    yd = torch.randn(batch, 16, 45, device=dev, generator=gen)
+    dz = torch.randn(batch, dotprod.tril_size(46), device=dev, generator=gen)
+    zk = dotprod.dot_scores_tril_fwd_kernel(xd, yd)
+    dxk, dyk = dotprod.dot_scores_tril_bwd_kernel(xd, yd, dz)
+    xs, ys = xd.clone().requires_grad_(True), yd.clone().requires_grad_(True)
+    zp = dotprod.dot_scores_tril_plain(xs, ys)
+    dxp, dyp = torch.autograd.grad(zp, [xs, ys], dz)
+    torch.testing.assert_close(zk, zp.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dxk, dxp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dyk, dyp, rtol=1e-5, atol=1e-4)
+
+
+def test_supernet_forward_and_train_step_kernels_match_plain(dev):
+    """Seven xlarge blocks with LayerNorm at batch 512 on sampled masks: the
+    forward, then one masked train step, through the kernels and through the
+    plain versions from the same weights; every block launches its body and
+    dot-product kernels whatever its gates."""
+    import copy
+
+    import numpy as np
+
+    from nasrec_tpu_torch.choices import ChoiceMasks, choice_to_masks
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_apply, supernet_init
+    from nasrec_tpu_torch.sampling import ChoiceSampler
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    space = OPS_CONFIG_LIB["xlarge"]
+    cfg = SuperNetConfig(space=space, num_blocks=7, num_dense=13, num_sparse=26,
+                         vocab_sizes=(1000,) * 26, use_layernorm=True)
+    model_k = supernet_init(cfg, seed=0, device=dev)
+    model_p = copy.deepcopy(model_k)
+    sampler = ChoiceSampler(space, 7, strategy="default", anypath_choice="binomial-0.5", seed=1)
+    masks = ChoiceMasks.stack([choice_to_masks(sampler(), space, 7)
+                               for _ in range(2)]).to(dev)
+    rng = np.random.RandomState(0)
+    dense = torch.as_tensor(rng.randn(512, 13).astype(np.float32), device=dev)
+    cat = torch.as_tensor(rng.randint(0, 1000, size=(512, 26)).astype(np.int32), device=dev)
+    y = torch.as_tensor(rng.randint(0, 2, size=(512, 1)).astype(np.float32), device=dev)
+
+    with torch.no_grad():
+        before = dict(transformer_body.LAUNCHES)
+        out_k = supernet_apply(model_k, dense, cat, masks.select(0))
+        assert transformer_body.LAUNCHES["fwd_s64"] == before.get("fwd_s64", 0) + 7
+        out_p = supernet_apply(model_p, dense, cat, masks.select(0), impl="plain")
+    torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-4)
+
+    res = []
+    for model, impl in ((model_k, "auto"), (model_p, "plain")):
+        step = make_sparse_embedding_train_step(lambda s: 0.05, impl=impl, has_masks=True)
+        state, metrics = step(init_sparse_train_state(model), dense, cat, y, (masks, 1))
+        res.append(float(metrics["loss"]))
+    assert abs(res[0] - res[1]) <= 1e-4
+    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
+    for name in sd_k:
+        assert (sd_k[name] - sd_p[name]).abs().max().item() <= 1e-4, name

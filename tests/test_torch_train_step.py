@@ -110,11 +110,13 @@ def _run_cli_on_cpu(arch, tmp_path):
     assert 0.0 <= logs["test_AUROC"][-1] <= 1.0
     assert out["state"].step == 3
     assert (tmp_path / "train_test_logs.json").exists()
+    assert (tmp_path / "metrics.jsonl").exists()
     with open(tmp_path / "checkpoint.pkl", "rb") as f:
         ckpt = pickle.load(f)
     assert ckpt["step"] == 3
-    assert torch.equal(ckpt["params"]["embedding.table"],
-                       out["state"].model.embedding.table.detach())
+    # The JAX package's layout: numpy arrays, the table as [vocab, 16].
+    np.testing.assert_array_equal(ckpt["params"]["embedding"]["table"],
+                                  out["state"].model.embedding.table.detach().numpy())
     return out
 
 
