@@ -29,7 +29,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               at S = 64 (training forward and backward at batch 512, eval
               forward at 4096), the dot-product at n = 46 (both at 512, the
               forward at 4096) and the table update over the search-capped
-              table (3,069,317 rows) at batch 512, each with cold_ms.
+              table (3,069,317 rows) at batch 512, each with cold_ms; and the
+              search's shapes: the body's eval forward at S = 64 for batch 512
+              and 1024 (an eval chunk), the dot-product forward at n = 46 for
+              batch 1024.
   3. main     sparse-embedding train steps at full Criteo vocab (33,762,601
               rows) and batch 32768 through the kernels, counted, then the
               same steps from the same weights through the plain versions:
@@ -54,6 +57,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
               Then nasrec_tpu_torch.cli.train_supernet at 7 blocks and batch
               512 with a logging dir, resumed from its checkpoint; the resumed
               checkpoint reloads into a fresh model with equal eval logits.
+  6. search   the weight-shared search at the canonical search configuration
+              of the JAX CLI (nasrec_tpu/cli/eval_subnet_from_supernet.py:3-10):
+              the phase-4 supernet (space xlarge, 7 blocks, LayerNorm, 3,069,317
+              capped rows, the same seed-0 weights), fine-tune batch 512, test
+              batch 8192 in eval chunks of 1024, groups of 8, final-only.  The
+              launches of single group steps (8 x 7 eval body forwards and 8 x 7
+              dot-product forwards, nothing else), their times, a profile
+              line; a short regularized EA (16 initial candidates, 2 generations
+              of 8 children, sample 8, top 2; 20 fine-tune steps and 2 test
+              batches a candidate, where the canonical run takes 500 and 150:
+              only the step counts are cut), counted; its first group scored
+              again through the plain versions (test losses and fine-tuned
+              finals within 1e-4); then 2 candidates in the whole-net mode for 3
+              steps (each step the 7/7/7/7/1 launches of phase 4), against plain.
+  7. search_rank  the JAX-trained supernet of experiments/search_quality_proxy
+              re-scores the 24 initial candidates of its all_results.pickle with
+              the proxy's protocol (experiments/search_quality_proxy.py: fine-tune
+              stream seed 303, test stream seed 1, 200 steps at batch 512, 24 test
+              batches of 4096, lr 0.04, groups of 8); the Spearman correlation
+              with the losses recorded on the TPU must be 0.7 or more.
+  8. search_cli  nasrec_tpu_torch.cli.eval_subnet_from_supernet: --method random
+              on phase 5's checkpoint (8 candidates, 5 steps), --method cached on
+              the first 8 records of the proxy's results.pickle; then
+              nasrec_tpu_torch.cli.eval_subnet_from_scratch with 2 xlarge
+              subnets at batch 512.  Every loss finite, every file written.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -64,8 +92,10 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -143,6 +173,28 @@ SN_STEP_LAUNCHES = {"transformer_body_fwd_train_s64": SN_BLOCKS,
                     "table_update": 1}
 SN_EVAL_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
                     "dot_scores_tril_fwd_n46": SN_BLOCKS}
+# The search (phase 6) at the canonical search configuration: the phase-4
+# supernet, groups of 8 final-only candidates, fine-tune batch 512, test batch
+# 8192 in eval chunks of 1024.  Cut: the step counts only (20 fine-tune steps
+# and 2 test batches a candidate; the canonical run takes 500 and 150).
+SEARCH_GROUP = 8
+SEARCH_STEPS, SEARCH_EVAL_STEPS = 20, 2
+SEARCH_TEST_BATCH, SEARCH_CHUNK = 8192, 1024
+SEARCH_TRAIN_BATCHES = 8          # distinct fine-tune batches, looped
+SEARCH_EA = dict(init_population=16, n_generations=2, n_childs=8, sample_size=8, top_k=2)
+SEARCH_CANONICAL_STEPS = (500, 150)
+SEARCH_WHOLE_CANDIDATES, SEARCH_WHOLE_STEPS = 2, 3
+# A final-only group step runs the frozen body once a candidate under no_grad:
+# the eval body forward and the dot-product forward in every block, nothing
+# else; an eval chunk launches the same.
+SEARCH_STEP_LAUNCHES = {"transformer_body_fwd_s64": SEARCH_GROUP * SN_BLOCKS,
+                        "dot_scores_tril_fwd_n46": SEARCH_GROUP * SN_BLOCKS}
+# The search-quality proxy (phase 7; experiments/search_quality_proxy.py:57-58,
+# :138-144, :202-210): its JAX-trained supernet and the protocol of its EA.
+PROXY_DIR = ROOT / "experiments" / "search_quality_proxy"
+RANK_CANDIDATES = 24              # the EA's initial population, records 0-23
+RANK_STEPS, RANK_EVAL_STEPS = 200, 24
+RANK_MIN_SPEARMAN = 0.7
 
 
 def emit(obj) -> None:
@@ -731,10 +783,16 @@ def phase_kernels(hbm):
     # SN_EVAL_BATCH in the eval forward ("_b4096"); the table update over the
     # search-capped table.
     tr, ev = f"_b{SN_BATCH}", f"_b{SN_EVAL_BATCH}"
-    check_transformer_body(64, hbm, gen, rows_out, SN_BATCH, tr, ("fwd_train", "bwd"), True)
+    # The search's shapes: the eval forward at 512 (a fine-tune step) and at
+    # SEARCH_CHUNK (an eval chunk), rows "_b512" and "_b1024".
+    ch = f"_b{SEARCH_CHUNK}"
+    check_transformer_body(64, hbm, gen, rows_out, SN_BATCH, tr, ("fwd", "fwd_train", "bwd"),
+                           True)
     check_transformer_body(64, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",), True)
+    check_transformer_body(64, hbm, gen, rows_out, SEARCH_CHUNK, ch, ("fwd",), True)
     check_dot_scores(46, hbm, gen, rows_out, SN_BATCH, tr)
     check_dot_scores(46, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",))
+    check_dot_scores(46, hbm, gen, rows_out, SEARCH_CHUNK, ch, ("fwd",))
     check_table_update(spec.vocab_sizes(SN_VOCAB_CAP), hbm, gen, rows_out, SN_BATCH,
                        f"table_update{tr}")
     _l2_scratch.clear()      # the main paths' peak memory is read without it
@@ -1006,14 +1064,13 @@ def phase_supernet(rows_out):
     torch.cuda.empty_cache()
 
 
-def phase_supernet_cli():
+def phase_supernet_cli(tmp: Path) -> Path:
     """nasrec_tpu_torch.cli.train_supernet on synthetic data at 7 blocks and
     batch 512 with a logging dir, then a resume from its checkpoint; the
     resumed run's checkpoint reloads into a fresh model with equal eval
-    logits.  (lr 0.02, as in phase_cli: a run this short has no warmup.)"""
-    import shutil
-    import tempfile
-
+    logits.  (lr 0.02, as in phase_cli: a run this short has no warmup.)
+    Writes under `tmp`; returns the resumed run's checkpoint, which phase 8
+    searches."""
     import numpy as np
     import torch
 
@@ -1024,43 +1081,39 @@ def phase_supernet_cli():
     from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint
     from nasrec_tpu_torch.train.loop import make_eval_step
 
-    tmp = Path(tempfile.mkdtemp(prefix="nasrec_supernet_"))
-    try:
-        base = ["--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
-                "--num_blocks", str(SN_BLOCKS), "--use_layernorm", "1",
-                "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_EVAL_BATCH),
-                "--max_eval_steps", "1", "--display_interval", "1",
-                "--supernet_training_steps", str(SN_WARMUP), "--learning_rate", "0.02"]
-        reset_launches()
-        t0 = time.perf_counter()
-        first = train_supernet.main(base + [
-            "--max_train_steps", str(SN_CLI_STEPS), "--test_interval", str(SN_CLI_STEPS),
-            "--logging_dir", str(tmp / "first")])
-        first_s = time.perf_counter() - t0
-        launches = read_launches()
-        t0 = time.perf_counter()
-        second = train_supernet.main(base + [
-            "--max_train_steps", str(SN_RESUME_STEPS), "--test_interval",
-            str(SN_RESUME_STEPS), "--logging_dir", str(tmp / "second"),
-            "--checkpoint_path", str(tmp / "first" / "supernet_checkpoint.pkl")])
-        second_s = time.perf_counter() - t0
-        ckpt = load_any_checkpoint(str(tmp / "second" / "supernet_checkpoint.pkl"))
-        files = sorted(p.name for p in (tmp / "first").iterdir())
+    base = ["--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
+            "--num_blocks", str(SN_BLOCKS), "--use_layernorm", "1",
+            "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_EVAL_BATCH),
+            "--max_eval_steps", "1", "--display_interval", "1",
+            "--supernet_training_steps", str(SN_WARMUP), "--learning_rate", "0.02"]
+    reset_launches()
+    t0 = time.perf_counter()
+    first = train_supernet.main(base + [
+        "--max_train_steps", str(SN_CLI_STEPS), "--test_interval", str(SN_CLI_STEPS),
+        "--logging_dir", str(tmp / "first")])
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    second = train_supernet.main(base + [
+        "--max_train_steps", str(SN_RESUME_STEPS), "--test_interval",
+        str(SN_RESUME_STEPS), "--logging_dir", str(tmp / "second"),
+        "--checkpoint_path", str(tmp / "first" / "supernet_checkpoint.pkl")])
+    second_s = time.perf_counter() - t0
+    ckpt = load_any_checkpoint(str(tmp / "second" / "supernet_checkpoint.pkl"))
+    files = sorted(p.name for p in (tmp / "first").iterdir())
 
-        cfg = second["cfg"]
-        fresh = supernet_init(cfg, seed=123, device=torch.device(DEVICE))
-        fresh.load_state_dict(from_jax_params(ckpt["params"], cfg))
-        rng = np.random.RandomState(2)
-        dense = torch.as_tensor(rng.randn(SN_EVAL_BATCH, 13).astype(np.float32), device=DEVICE)
-        cat = torch.as_tensor(rng.randint(0, cfg.vocab_sizes[0], size=(SN_EVAL_BATCH, 26))
-                              .astype(np.int32), device=DEVICE)
-        m = choice_to_masks(full_path_choice(cfg.space, SN_BLOCKS), cfg.space,
-                            SN_BLOCKS).to(DEVICE)
-        eval_step = make_eval_step(has_masks=True)
-        reload_diff = (eval_step(fresh, dense, cat, m)
-                       - eval_step(second["state"].model, dense, cat, m)).abs().max().item()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = second["cfg"]
+    fresh = supernet_init(cfg, seed=123, device=torch.device(DEVICE))
+    fresh.load_state_dict(from_jax_params(ckpt["params"], cfg))
+    rng = np.random.RandomState(2)
+    dense = torch.as_tensor(rng.randn(SN_EVAL_BATCH, 13).astype(np.float32), device=DEVICE)
+    cat = torch.as_tensor(rng.randint(0, cfg.vocab_sizes[0], size=(SN_EVAL_BATCH, 26))
+                          .astype(np.int32), device=DEVICE)
+    m = choice_to_masks(full_path_choice(cfg.space, SN_BLOCKS), cfg.space,
+                        SN_BLOCKS).to(DEVICE)
+    eval_step = make_eval_step(has_masks=True)
+    reload_diff = (eval_step(fresh, dense, cat, m)
+                   - eval_step(second["state"].model, dense, cat, m)).abs().max().item()
     logs1, logs2 = first["logs"][0], second["logs"][0]
     # Every train step launches the step's kernels, every eval forward (one
     # batch at each test point) the forward kernels.
@@ -1084,6 +1137,316 @@ def phase_supernet_cli():
           "seconds": [first_s, second_s], "ok": ok})
     if not ok:
         raise SystemExit("the supernet CLI did not train, resume or reload")
+    return tmp / "second" / "supernet_checkpoint.pkl"
+
+
+def spearman(a, b) -> float:
+    """Spearman rank correlation (ties take their average rank)."""
+    import numpy as np
+
+    def ranks(x):
+        x = np.asarray(x, dtype=np.float64)
+        r = np.empty(len(x))
+        r[np.argsort(x, kind="mergesort")] = np.arange(len(x))
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r
+
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
+
+
+def timed_steps(fn, n: int) -> tuple:
+    """Host times (ms) of n calls of fn, each ended by a synchronize, and the
+    launches of each call."""
+    import torch
+
+    times, launches = [], []
+    for _ in range(n):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches())
+    return times, launches
+
+
+def phase_search(rows_out):
+    """The weight-shared search at the canonical search configuration (see
+    the module docstring, phase 6)."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
+    from nasrec_tpu_torch.models.supernet import supernet_init
+    from nasrec_tpu_torch.search import SearchConfig, Searcher, Tokenizer, make_candidate_evaluator
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    space = OPS_CONFIG_LIB["xlarge"]
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(SN_VOCAB_CAP)
+    cfg = supernet_config(vocab)
+    model = supernet_init(cfg, seed=0, device=dev)          # phase 4's weights
+    rng = np.random.RandomState(3)
+
+    def batch(n):
+        return (torch.as_tensor(rng.randn(n, 13).astype(np.float32), device=dev),
+                torch.as_tensor(draw_indices(rng, n, vocab, "uniform"), device=dev),
+                torch.as_tensor(rng.randint(0, 2, size=(n, 1)).astype(np.float32), device=dev))
+
+    train_batches = [batch(SN_BATCH) for _ in range(SEARCH_TRAIN_BATCHES)]
+    test_batches = [batch(SEARCH_TEST_BATCH) for _ in range(SEARCH_EVAL_STEPS)]
+    train_iter_fn, test_iter_fn = (lambda: iter(train_batches)), (lambda: iter(test_batches))
+    args = dict(learning_rate=0.04, max_train_steps=SEARCH_STEPS,
+                max_eval_steps=SEARCH_EVAL_STEPS, eval_batch_chunk=SEARCH_CHUNK)
+    ev = make_candidate_evaluator(cfg, model, **args)
+
+    # Single group steps and eval chunks: launches, times, a profile line.
+    tok = Tokenizer(SN_BLOCKS, space, seed=1)
+    group = ev.group([tok.generate_random_choice() for _ in range(SEARCH_GROUP)])
+    step_ms, step_launches = timed_steps(lambda: group.step(*train_batches[0], 0), 6)
+    d, c, _ = test_batches[0]
+    chunk_ms, chunk_launches = timed_steps(
+        lambda: group.logits(d[:SEARCH_CHUNK], c[:SEARCH_CHUNK]), 4)
+    profile_steps("search group step (8 candidates, batch 512)",
+                  lambda: group.step(*train_batches[0], 0), 3)
+    del group
+
+    # A short regularized EA, counted; the first group's finals kept.
+    first = {}
+
+    def eval_fn(choices):
+        res = ev(choices, train_iter_fn, test_iter_fn)
+        if not first:
+            g = ev.last_group
+            first.update(choices=choices, results=res,
+                         weight=g.weight.clone(), bias=g.bias.clone())
+        return res
+
+    searcher = Searcher(eval_fn, Tokenizer(SN_BLOCKS, space, seed=0),
+                        SearchConfig(group_size=SEARCH_GROUP, seed=0), log_fn=lambda m: None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = searcher.regularized_evolution_from_supernet(**SEARCH_EA)
+    torch.cuda.synchronize()
+    ea_s = time.perf_counter() - t0
+    ea_launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    explored = searcher.all_results
+    groups = len(explored) // SEARCH_GROUP
+    chunks = SEARCH_EVAL_STEPS * (SEARCH_TEST_BATCH // SEARCH_CHUNK)
+    want_launches = {k: v * groups * (SEARCH_STEPS + chunks)
+                     for k, v in SEARCH_STEP_LAUNCHES.items()}
+
+    # The first group again, through the plain versions.
+    reset_launches()
+    plain = make_candidate_evaluator(cfg, model, impl="plain", **args)
+    res_p = plain(first["choices"], train_iter_fn, test_iter_fn)
+    plain_launches = read_launches()
+    loss_diff = max(abs(a["test_loss"] - b["test_loss"]) for a, b in zip(first["results"], res_p))
+    final_diff = max((first["weight"] - plain.last_group.weight).abs().max().item(),
+                     (first["bias"] - plain.last_group.bias).abs().max().item())
+    del plain
+
+    step_med = float(np.median(step_ms[1:]))
+    chunk_med = float(np.median(chunk_ms[1:]))
+    canon_steps, canon_eval = SEARCH_CANONICAL_STEPS
+    s_per_cand_canonical = (canon_steps * step_med + canon_eval
+                            * (SEARCH_TEST_BATCH // SEARCH_CHUNK) * chunk_med) / SEARCH_GROUP / 1e3
+    ok = (len(explored) == SEARCH_EA["init_population"]
+          + SEARCH_EA["n_generations"] * SEARCH_EA["n_childs"]
+          and len(history) == SEARCH_EA["n_generations"] * SEARCH_EA["top_k"]
+          and all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in explored)
+          and all(x == SEARCH_STEP_LAUNCHES for x in step_launches + chunk_launches)
+          and ea_launches == want_launches and not plain_launches
+          and loss_diff <= LOSS_TOL and final_diff <= PARAM_TOL)
+    emit({"phase": "search", "config": "criteo-kaggle xlarge supernet, final-only",
+          "blocks": SN_BLOCKS, "vocab_rows": int(sum(vocab)), "group": SEARCH_GROUP,
+          "batch": SN_BATCH, "test_batch": SEARCH_TEST_BATCH, "eval_chunk": SEARCH_CHUNK,
+          "steps": SEARCH_STEPS, "eval_steps": SEARCH_EVAL_STEPS, "ea": SEARCH_EA,
+          "candidates": len(explored), "groups": groups, "ea_s": ea_s,
+          "s_per_candidate": ea_s / len(explored),
+          "s_per_candidate_canonical_extrapolated": s_per_cand_canonical,
+          "group_step_ms": step_med, "group_step_ms_all": step_ms,
+          "eval_chunk_ms": chunk_med, "eval_chunk_ms_all": chunk_ms,
+          "launches_per_group_step": step_launches[0], "launches_per_eval_chunk":
+          chunk_launches[0], "ea_launches": ea_launches, "peak_mem_gb": peak_gb,
+          "test_losses": [r["test_loss"] for r in explored],
+          "history_losses": [r["test_loss"] for r in history],
+          "first_group_max_loss_diff_vs_plain": loss_diff,
+          "first_group_max_final_diff_vs_plain": final_diff, "ok": ok})
+    if not ok:
+        raise SystemExit("the search drive failed (see the 'search' line)")
+    tr, ch = f"_b{SN_BATCH}", f"_b{SEARCH_CHUNK}"
+    for kernel, count in SEARCH_STEP_LAUNCHES.items():
+        rows_out[kernel + tr]["launches"] = (rows_out[kernel + tr].get("launches", 0)
+                                             + count * groups * SEARCH_STEPS)
+        rows_out[kernel + ch]["launches"] = (rows_out[kernel + ch].get("launches", 0)
+                                             + count * groups * chunks)
+
+    # Whole-net fine-tune of 2 candidates, each step counted, against plain.
+    whole_args = dict(args, max_train_steps=SEARCH_WHOLE_STEPS, max_eval_steps=1,
+                      finetune_mode="whole")
+    picks = [r["choice"] for r in explored[:SEARCH_WHOLE_CANDIDATES]]
+    per_step = []
+
+    def counted_train():
+        reset_launches()
+        for b in train_batches:
+            yield b
+            per_step.append(read_launches())
+            reset_launches()
+
+    def counted_test():
+        per_step.append(read_launches())       # the last fine-tune step's
+        yield test_batches[0]
+
+    whole = make_candidate_evaluator(cfg, model, **whole_args)
+    t0 = time.perf_counter()
+    res_w = whole(picks, counted_train, counted_test)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_p = make_candidate_evaluator(cfg, model, impl="plain", **whole_args)
+    reset_launches()
+    res_wp = whole_p(picks, train_iter_fn, test_iter_fn)
+    plain_launches = read_launches()
+    w_loss_diff = max(abs(a["test_loss"] - b["test_loss"]) for a, b in zip(res_w, res_wp))
+    sd_k, sd_p = whole.model.state_dict(), whole_p.model.state_dict()
+    w_param_diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    ok = (len(per_step) == SEARCH_WHOLE_CANDIDATES * SEARCH_WHOLE_STEPS
+          and all(x == SN_STEP_LAUNCHES for x in per_step) and not plain_launches
+          and all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in res_w)
+          and w_loss_diff <= LOSS_TOL and w_param_diff <= PARAM_TOL)
+    emit({"phase": "search", "mode": "whole", "candidates": SEARCH_WHOLE_CANDIDATES,
+          "steps": SEARCH_WHOLE_STEPS, "seconds": whole_s,
+          "test_losses": [r["test_loss"] for r in res_w],
+          "test_losses_plain": [r["test_loss"] for r in res_wp],
+          "max_loss_diff": w_loss_diff, "last_candidate_max_param_diff": w_param_diff,
+          "launches_per_step": per_step[0],
+          "launches_equal_every_step": all(x == per_step[0] for x in per_step),
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("the search's whole-net fine-tune failed (see its 'search' line)")
+    del whole, whole_p, ev, model, train_batches, test_batches
+    torch.cuda.empty_cache()
+
+
+def phase_search_rank():
+    """The JAX-trained proxy supernet in the port: the 24 initial candidates
+    of its EA scored again with the proxy's protocol, ranked against the
+    losses the TPU recorded (see the module docstring, phase 7)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+    from nasrec_tpu_torch.models.transplant import from_jax_params
+    from nasrec_tpu_torch.search import make_candidate_evaluator
+    from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint
+
+    dev = torch.device(DEVICE)
+    spec = SyntheticSpec(vocab=500, signal_scale=0.7, interaction_pairs=16,
+                         interaction_scale=1.0)
+    cfg = SuperNetConfig(space=OPS_CONFIG_LIB["xlarge-zeros"], num_blocks=2, num_dense=13,
+                         num_sparse=26, vocab_sizes=(spec.vocab,) * 26, use_layernorm=True)
+    t0 = time.perf_counter()
+    model = supernet_init(cfg, seed=0, device=dev)
+    ckpt = load_any_checkpoint(str(PROXY_DIR / "supernet_checkpoint.pkl"))
+    model.load_state_dict(from_jax_params(ckpt["params"], cfg))
+    with open(PROXY_DIR / "all_results.pickle", "rb") as f:
+        records = pickle.load(f)[:RANK_CANDIDATES]
+    ev = make_candidate_evaluator(cfg, model, learning_rate=0.04, max_train_steps=RANK_STEPS,
+                                  max_eval_steps=RANK_EVAL_STEPS)
+    train_iter_fn = lambda: synthetic_batches(1_000_000, SN_BATCH, spec, seed=303, loop=True,
+                                              device=dev)
+    test_iter_fn = lambda: synthetic_batches(200_000, 4096, spec, seed=1, device=dev)
+    reset_launches()
+    results = []
+    for g in range(0, RANK_CANDIDATES, SEARCH_GROUP):
+        results += ev([r["choice"] for r in records[g:g + SEARCH_GROUP]], train_iter_fn,
+                      test_iter_fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = [r["test_loss"] for r in records]
+    got = [r["test_loss"] for r in results]
+    rho = spearman(want, got)
+    ok = (all(math.isfinite(x) and x < 999 for x in got) and rho >= RANK_MIN_SPEARMAN
+          and set(launches) == set(SEARCH_STEP_LAUNCHES))
+    emit({"phase": "search_rank", "checkpoint": "experiments/search_quality_proxy "
+          "(xlarge-zeros, 2 blocks, LayerNorm, vocab 500, trained by the JAX package)",
+          "candidates": RANK_CANDIDATES, "steps": RANK_STEPS, "eval_steps": RANK_EVAL_STEPS,
+          "spearman": rho, "min_spearman": RANK_MIN_SPEARMAN,
+          "max_abs_diff": float(np.max(np.abs(np.subtract(want, got)))),
+          "test_losses": got, "recorded_test_losses": want, "seconds": seconds,
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("the port's scores do not rank the proxy's candidates as recorded")
+    del model, ev
+    torch.cuda.empty_cache()
+
+
+def phase_search_cli(ckpt: Path, tmp: Path):
+    """The search and from-scratch CLIs on synthetic data (see the module
+    docstring, phase 8)."""
+    import pickle
+
+    from nasrec_tpu_torch.cli import eval_subnet_from_scratch, eval_subnet_from_supernet
+
+    base = ["--data_source", "synthetic", "--device", DEVICE, "--max_train_steps", "5",
+            "--max_eval_steps", "1", "--train_batch_size", str(SN_BATCH)]
+    reset_launches()
+    t0 = time.perf_counter()
+    top = eval_subnet_from_supernet.main(base + [
+        "--method", "random", "--budget", "8", "--group_size", "8", "--config", "xlarge",
+        "--num_blocks", str(SN_BLOCKS), "--ckpt_path", str(ckpt),
+        "--test_batch_size", str(SEARCH_TEST_BATCH), "--logging_dir", str(tmp / "random")])
+    random_s = time.perf_counter() - t0
+    launches = read_launches()
+    with open(tmp / "random" / "all_results.pickle", "rb") as f:
+        explored = pickle.load(f)
+    # 8 candidates, each 5 fine-tune steps and 8 eval chunks of the one test batch.
+    want = {k: v * (5 + SEARCH_TEST_BATCH // SEARCH_CHUNK) for k, v in SEARCH_STEP_LAUNCHES.items()}
+
+    with open(PROXY_DIR / "results.pickle", "rb") as f:
+        records = pickle.load(f)[:8]
+    with open(tmp / "records.pickle", "wb") as f:
+        pickle.dump(records, f)
+    t0 = time.perf_counter()
+    cached = eval_subnet_from_supernet.main(base + [
+        "--method", "cached", "--choice_from_pickle_file", str(tmp / "records.pickle"),
+        "--config", "xlarge-zeros", "--num_blocks", "2", "--synthetic_vocab", "500",
+        "--ckpt_path", str(PROXY_DIR / "supernet_checkpoint.pkl"), "--test_batch_size", "4096",
+        "--logging_dir", str(tmp / "cached")])
+    cached_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    scratch = eval_subnet_from_scratch.main(base + [
+        "--config", "xlarge", "--num_blocks", "7", "--num_subnets", "2",
+        "--test_batch_size", "4096", "--learning_rate", "0.02", "--display_interval", "5",
+        "--test_interval", "5", "--logging_dir", str(tmp / "scratch")])
+    scratch_s = time.perf_counter() - t0
+    losses = ([r["test_loss"] for r in explored] + [r["test_loss"] for r in cached]
+              + [r["test_loss"] for r in scratch])
+    ok = (len(explored) == 8 and len(top) == 2 and launches == want
+          and (tmp / "random" / "results.pickle").is_file()
+          and (tmp / "cached" / "results.pickle").is_file()
+          and (tmp / "scratch" / "from_scratch_results.pickle").is_file()
+          and [r["gt_test_loss"] for r in cached] == [r["test_loss"] for r in records]
+          and len(scratch) == 2 and all(math.isfinite(x) and x < 999 for x in losses))
+    emit({"phase": "search_cli", "random_test_losses": [r["test_loss"] for r in explored],
+          "random_launches": launches,
+          "cached_test_losses": [r["test_loss"] for r in cached],
+          "cached_gt_test_losses": [r["gt_test_loss"] for r in cached],
+          "scratch_test_losses": [r["test_loss"] for r in scratch],
+          "seconds": [random_s, cached_s, scratch_s], "ok": ok})
+    if not ok:
+        raise SystemExit("a search CLI failed (see the 'search_cli' line)")
 
 
 def profile_steps(arch: str, step_fn, steps: int) -> None:
@@ -1186,7 +1549,14 @@ def main() -> int:
     phase_supernet(rows_out)
     for space in ("autoctr", "xlarge"):
         phase_cli(space)
-    phase_supernet_cli()
+    tmp = Path(tempfile.mkdtemp(prefix="nasrec_smoke_"))
+    try:
+        ckpt = phase_supernet_cli(tmp)
+        phase_search(rows_out)
+        phase_search_rank()
+        phase_search_cli(ckpt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     idle = [name for name, row in rows_out.items() if not row.get("launches")]
     if idle:
         raise SystemExit(f"kernels that no main path launched: {idle}")

@@ -3,7 +3,9 @@
 workloads read, plus --device).  The TSV pipeline's flags (--root_dir,
 --train_split, --validate_split, --train_limit) come with that pipeline;
 --cap_vocab is read, and matters only there (synthetic data sizes its own
-tables).  Also left out until their layers are ported: the multi-process
+tables, by --synthetic_vocab rows a slot: a flag of the port, which the
+search CLI needs to load a supernet trained at another synthetic vocab).
+Also left out until their layers are ported: the multi-process
 flags (the mesh branch), --report_flops and --profile_dir (profiling), and
 --attention_impl (the port picks kernel or plain version by the tensors'
 device); --loss_function has one value, bce, which is what the step computes."""
@@ -25,6 +27,8 @@ def add_data_args(p: argparse.ArgumentParser, train_bs=256, test_bs=16368):
     p.add_argument("--test_batch_size", type=int, default=test_bs)
     p.add_argument("--cap_vocab", type=int, default=0,
                    help="1: cap embedding tables at 0.5M rows (search mode)")
+    p.add_argument("--synthetic_vocab", type=int, default=DataOptions.synthetic_vocab,
+                   help="rows a slot of the tables for --data_source synthetic")
 
 
 def add_train_args(p: argparse.ArgumentParser, lr=0.16):
@@ -67,6 +71,7 @@ def data_options(args) -> DataOptions:
         train_batch_size=args.train_batch_size,
         test_batch_size=args.test_batch_size,
         vocab_cap=SEARCH_MAX_NUM_EMBEDDINGS if args.cap_vocab == 1 else None,
+        synthetic_vocab=args.synthetic_vocab,
     )
 
 

@@ -1,9 +1,13 @@
-"""Fixed-subnet training CLI (port of `nasrec_tpu/cli/main_train.py`).
+"""Fixed-subnet / full-supernet training CLI (port of
+`nasrec_tpu/cli/main_train.py`).
 
 Example (on the card; add --device cpu to run on the CPU):
   python -m nasrec_tpu_torch.cli.main_train --arch criteo-kaggle/xlarge \
       --data_source synthetic --max_train_steps 50 \
       --train_batch_size 2048 --test_batch_size 4096
+
+--net supernet trains the full path of the xlarge supernet (7 blocks, LayerNorm
+on) through workloads.train_supernet, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -39,11 +43,16 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    from nasrec_tpu_torch.workloads import train_fixed_subnet
+    from nasrec_tpu_torch.workloads import SupernetOptions, train_fixed_subnet, train_supernet
 
     if args.net == "supernet":
-        raise NotImplementedError("--net supernet (supernet training) is not yet "
-                                  "ported to nasrec_tpu_torch (see ROADMAP.md)")
+        # Train the full supernet path (ref: main_train.py:244-254).
+        return train_supernet(
+            SupernetOptions(config="xlarge", num_blocks=7, use_layernorm=True,
+                            strategy="full-path", supernet_training_steps=0,
+                            last_n_blocks_out=args.last_n_blocks_out),
+            data_options(args), train_options(args),
+        )
     if args.supernet_config:
         payload = load_choice_file(args.supernet_config)
     elif args.arch:

@@ -176,10 +176,11 @@ class SuperNet(nn.Module):
                                     for i in range(cfg.num_blocks))
         self.final = Linear(cfg.head_width(), 1, True, generator, device)
 
-    def forward_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
-                         masks: ChoiceMasks, impl: str = "auto") -> torch.Tensor:
-        """Forward from a looked-up flat stem [B, S*E] -> logits [B, 1].
-        `masks` may be host (numpy) or device masks."""
+    def head_features_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
+                               masks: ChoiceMasks, impl: str = "auto") -> torch.Tensor:
+        """The features the final linear reads, [B, head_width], from a
+        looked-up flat stem [B, S*E].  `masks` may be host (numpy) or device
+        masks."""
         cfg = self.cfg
         masks = masks.to(dense_x.device)
         dense_list = [dense_x]
@@ -203,10 +204,19 @@ class SuperNet(nn.Module):
             flat_sparse = torch.cat(tail, dim=-1).reshape(dense_x.shape[0], -1)
         else:
             flat_sparse = sparse_list[-1]   # the flat layout is the reference flatten
-        out = self.final(torch.cat([flat_dense, flat_sparse], dim=-1))
-        if cfg.use_final_sigmoid:
+        return torch.cat([flat_dense, flat_sparse], dim=-1)
+
+    def head(self, features: torch.Tensor) -> torch.Tensor:
+        """The final linear (and sigmoid, where configured) on head features."""
+        out = self.final(features)
+        if self.cfg.use_final_sigmoid:
             out = torch.sigmoid(out)
         return out
+
+    def forward_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
+                         masks: ChoiceMasks, impl: str = "auto") -> torch.Tensor:
+        """Forward from a looked-up flat stem [B, S*E] -> logits [B, 1]."""
+        return self.head(self.head_features_embedded(dense_x, stem, masks, impl))
 
     def forward(self, dense_x: torch.Tensor, cat_x: torch.Tensor, masks: ChoiceMasks,
                 impl: str = "auto") -> torch.Tensor:

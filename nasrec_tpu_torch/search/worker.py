@@ -1,0 +1,304 @@
+"""Weight-shared candidate evaluation (port of `nasrec_tpu/search/worker.py`).
+
+Reference flow (ref: nasrec/eval_subnet_from_supernet.py:71-207): per
+candidate, pin the choice on the trained supernet, freeze everything but the
+final linear, run a short fine-tune (default 500 steps at lr 0.04, Adagrad
+eps 1e-2, cosine schedule with warmup steps // 10, clip 5.0) and a 150-step
+eval.  The three fine-tune modes of the JAX package:
+
+  - "final-only" (the reference's default EA mode): the supernet's body is
+    frozen and shared, and the K candidates of a group advance together on
+    one shared batch (`FinalOnlyGroup`).  Each owns a copy of the final
+    linear and its Adagrad accumulator, held stacked as one [K, head_width, 1]
+    weight and one [K, 1] bias.  A step looks the batch up in the table once,
+    runs the frozen body once for each candidate with its masks under
+    `torch.no_grad()` (so the transformer node launches its eval kernel and
+    no backward kernel runs), then takes the K logits as one batched product,
+    the K losses and their gradients, clips each candidate's gradient by its
+    own global norm and applies Adagrad.  The JAX package vmaps the K
+    candidates; the kernels' autograd Functions call ctypes and have no vmap
+    rule, so the body forward loops over them.  No value is read back to the
+    host inside the fine-tune loop, except the mean loss logged every 100
+    steps.
+  - "whole" and "layernorm-calibrate": one candidate at a time.  The
+    supernet's weights are reloaded for each, and the trainable set
+    (`train/loop.py :: freeze_mask`) goes through the sparse-embedding step
+    under the candidate's masks; at wd 0 its touched-row table update (the
+    table kernel on the card) is the JAX package's dense Adagrad exactly.
+    `batch_candidates` is taken for the JAX signature; both values run the
+    candidates one after another and give the same numbers, as the JAX
+    package's two forms do.
+
+Eval runs `max_eval_steps` test batches in chunks of `eval_batch_chunk`,
+keeps the logits on the device until the split is done, then computes the
+sigmoid, logloss (eps 1e-12), accuracy and exact AUROC on the host; a
+non-finite loss gives the divergence sentinel (ref: train_utils.py:294-301).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, Iterable, List, Sequence
+
+import numpy as np
+import torch
+
+from nasrec_tpu_torch.choices import Choice, ChoiceMasks, choice_to_masks
+from nasrec_tpu_torch.models.supernet import SuperNet, SuperNetConfig
+from nasrec_tpu_torch.train.loop import freeze_mask
+from nasrec_tpu_torch.train.metrics import auc_exact, binary_accuracy, stable_sigmoid
+from nasrec_tpu_torch.train.optim import adagrad_update_, global_norm_scale, make_lr_schedule
+from nasrec_tpu_torch.train.sparse_embedding import (
+    init_sparse_train_state,
+    make_sparse_embedding_train_step,
+)
+
+FINETUNE_MODES = {"final-only": "final-only", "whole": "normal",
+                  "layernorm-calibrate": "layernorm-calibrate"}
+SENTINEL = {"test_acc": -1, "test_auroc": -1, "test_loss": 999.99}
+
+
+class FinalOnlyGroup:
+    """K candidates' final linears over the frozen, shared supernet body."""
+
+    def __init__(self, supernet: SuperNet, choices: Sequence[Choice], schedule: Callable,
+                 grad_clip: float, adagrad_eps: float, impl: str):
+        cfg = supernet.cfg
+        dev = supernet.final.weight.device
+        self.k = len(choices)
+        self.supernet, self.schedule, self.impl = supernet, schedule, impl
+        self.grad_clip, self.adagrad_eps = grad_clip, adagrad_eps
+        self.masks = ChoiceMasks.stack([choice_to_masks(c, cfg.space, cfg.num_blocks)
+                                        for c in choices]).to(dev)
+        # The JAX layout: w [K, head_width, 1], b [K, 1].
+        final = supernet.final
+        self.weight = final.weight.detach().t().expand(self.k, -1, -1).clone()
+        self.bias = final.bias.detach().expand(self.k, -1).clone()
+        self.acc_weight = torch.zeros_like(self.weight)
+        self.acc_bias = torch.zeros_like(self.bias)
+
+    @torch.no_grad()
+    def features(self, dense: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+        """[K, B, head_width]: the frozen body under each candidate's masks,
+        from one table lookup."""
+        sn = self.supernet
+        stem = sn.embedding(cat)
+        return torch.stack([sn.head_features_embedded(dense, stem, self.masks.select(i), self.impl)
+                            for i in range(self.k)])
+
+    def _logits(self, feats, weight, bias) -> torch.Tensor:
+        out = torch.baddbmm(bias[:, None, :], feats, weight)          # [K, B, 1]
+        return torch.sigmoid(out) if self.supernet.cfg.use_final_sigmoid else out
+
+    def step(self, dense, cat, y, step_idx: int) -> torch.Tensor:
+        """One fine-tune step of the K finals on a shared batch -> the K
+        losses (on the device)."""
+        feats = self.features(dense, cat)
+        w = self.weight.detach().requires_grad_(True)
+        b = self.bias.detach().requires_grad_(True)
+        x = self._logits(feats, w, b).float()
+        yf = y.float()
+        # BCE with logits, one mean per candidate (train/metrics.py).
+        losses = torch.mean(torch.clamp(x, min=0) - x * yf + torch.log1p(torch.exp(-torch.abs(x))),
+                            dim=(1, 2))
+        gw, gb = torch.autograd.grad(losses.sum(), [w, b])
+        with torch.no_grad():
+            # Each candidate's gradient is clipped by its own global norm.
+            sq = gw.square().sum(dim=(1, 2)) + gb.square().sum(dim=1)
+            scale = global_norm_scale(sq, self.grad_clip)
+            gw, gb = gw * scale[:, None, None], gb * scale[:, None]
+            adagrad_update_([self.weight, self.bias], [self.acc_weight, self.acc_bias],
+                            [gw, gb], float(self.schedule(step_idx)), self.adagrad_eps)
+        return losses.detach()
+
+    @torch.no_grad()
+    def logits(self, dense, cat) -> torch.Tensor:
+        """[K, B] logits of the K fine-tuned candidates."""
+        return self._logits(self.features(dense, cat), self.weight, self.bias)[..., 0]
+
+
+class SequentialCandidate:
+    """Whole-net or LayerNorm-calibrate fine-tune of one candidate at a time,
+    on a working copy of the supernet that is reloaded for each."""
+
+    def __init__(self, supernet: SuperNet, mode: str, schedule: Callable, grad_clip: float,
+                 adagrad_eps: float, impl: str):
+        self.supernet, self.impl = supernet, impl
+        self.model = copy.deepcopy(supernet)
+        trainable = None if mode == "normal" else freeze_mask(self.model, mode)
+        if trainable is not None and not any(trainable.values()):
+            raise ValueError(f"fine-tune mode {mode!r} leaves nothing to train "
+                             "(a supernet without LayerNorm?)")
+        self.train_step = make_sparse_embedding_train_step(
+            schedule, grad_clip=grad_clip, adagrad_eps=adagrad_eps, impl=impl,
+            has_masks=True, trainable=trainable)
+        self.state = init_sparse_train_state(self.model)
+        self.masks = None
+
+    @torch.no_grad()
+    def reset(self, choice: Choice) -> None:
+        """The supernet's weights, zero accumulators, step 0, `choice`'s masks."""
+        for p, src in zip(self.model.parameters(), self.supernet.parameters()):
+            p.copy_(src)
+        for a in self.state.opt_state.values():
+            a.zero_()
+        self.state.step = 0
+        cfg = self.supernet.cfg
+        self.masks = choice_to_masks(choice, cfg.space, cfg.num_blocks).to(
+            self.supernet.final.weight.device)
+
+    def step(self, dense, cat, y, step_idx: int) -> torch.Tensor:
+        self.state, metrics = self.train_step(self.state, dense, cat, y, self.masks)
+        return metrics["loss"]
+
+    @torch.no_grad()
+    def logits(self, dense, cat) -> torch.Tensor:
+        return self.model(dense, cat, self.masks, self.impl)[None, :, 0]
+
+
+def _finetune(step: Callable, train_iter_fn: Callable[[], Iterable], max_train_steps: int,
+              log_fn: Callable[[str], None]) -> None:
+    """max_train_steps steps on the shared stream, restarted when it ends."""
+    step_idx = 0
+    train_iter = iter(train_iter_fn())
+    while step_idx < max_train_steps:
+        try:
+            dense, cat, y = next(train_iter)
+        except StopIteration:
+            train_iter = iter(train_iter_fn())
+            continue
+        losses = step(dense, cat, y, step_idx)
+        step_idx += 1
+        if step_idx % 100 == 0:
+            log_fn(f"finetune step {step_idx}: loss {float(losses.mean()):.5f}")
+
+
+def _eval_logits(forward: Callable, test_iter_fn: Callable[[], Iterable], max_eval_steps: int,
+                 chunk: int):
+    """forward(dense, cat) -> [K, n] over the test stream in chunks ->
+    (logits [K, N], labels [N]) on the host."""
+    all_logits, all_labels = [], []
+    for i, (dense, cat, y) in enumerate(test_iter_fn()):
+        if max_eval_steps != -1 and i >= max_eval_steps:
+            break
+        all_logits.extend(forward(dense[s:s + chunk], cat[s:s + chunk])
+                          for s in range(0, len(y), chunk))
+        all_labels.append(y.reshape(-1))
+    if not all_logits:
+        raise ValueError("eval iterator produced no batches — is test_batch_size larger "
+                         "than the eval split (batches are dropped when short)?")
+    return (torch.cat(all_logits, dim=1).float().cpu().numpy(),
+            torch.cat(all_labels).float().cpu().numpy())
+
+
+def _score(choices: Sequence[Choice], logits: np.ndarray, labels: np.ndarray) -> List[Dict]:
+    probs = stable_sigmoid(logits)
+    eps = 1e-12
+    results = []
+    for i, choice in enumerate(choices):
+        p = probs[i]
+        logloss = float(-(labels * np.log(p + eps) + (1 - labels) * np.log(1 - p + eps)).mean())
+        if not np.isfinite(logloss):
+            results.append({"choice": choice, **SENTINEL})
+            continue
+        results.append({"choice": choice, "test_acc": binary_accuracy(p, labels),
+                        "test_auroc": auc_exact(labels, p), "test_loss": logloss})
+    return results
+
+
+class CandidateEvaluator:
+    """`evaluate(choices, train_iter_fn, test_iter_fn, log_fn) -> [results]`;
+    see `make_candidate_evaluator`.  After a final-only call, `last_group`
+    holds that group's fine-tuned finals; after a sequential one, `model`
+    holds the last candidate's weights."""
+
+    def __init__(self, supernet: SuperNet, *, learning_rate, max_train_steps, max_eval_steps,
+                 lr_schedule, grad_clip, adagrad_eps, eval_batch_chunk, finetune_mode, impl):
+        self.supernet = supernet
+        self.max_train_steps, self.max_eval_steps = max_train_steps, max_eval_steps
+        self.eval_batch_chunk, self.impl = eval_batch_chunk, impl
+        self.grad_clip, self.adagrad_eps = grad_clip, adagrad_eps
+        self.mode = FINETUNE_MODES[finetune_mode]
+        self.schedule = make_lr_schedule(lr_schedule, learning_rate, max_train_steps,
+                                         max_train_steps // 10)
+        self.last_group = None
+        self.sequential = None
+        if self.mode != "final-only":
+            self.sequential = SequentialCandidate(supernet, self.mode, self.schedule,
+                                                  grad_clip, adagrad_eps, impl)
+
+    @property
+    def model(self):
+        return self.sequential.model
+
+    def group(self, choices: Sequence[Choice]) -> FinalOnlyGroup:
+        """A fresh final-only group of `choices` (the supernet's final in each)."""
+        return FinalOnlyGroup(self.supernet, choices, self.schedule, self.grad_clip,
+                              self.adagrad_eps, self.impl)
+
+    def __call__(self, choices: Sequence[Choice], train_iter_fn: Callable[[], Iterable],
+                 test_iter_fn: Callable[[], Iterable],
+                 log_fn: Callable[[str], None] = lambda s: None) -> List[Dict]:
+        if self.sequential is None:
+            group = self.group(choices)
+            _finetune(group.step, train_iter_fn, self.max_train_steps, log_fn)
+            logits, labels = _eval_logits(group.logits, test_iter_fn, self.max_eval_steps,
+                                          self.eval_batch_chunk)
+            self.last_group = group
+            return _score(choices, logits, labels)
+        results = []
+        cand = self.sequential
+        for ci, choice in enumerate(choices):
+            cand.reset(choice)
+            _finetune(cand.step, train_iter_fn, self.max_train_steps, lambda s: None)
+            logits, labels = _eval_logits(cand.logits, test_iter_fn, self.max_eval_steps,
+                                          self.eval_batch_chunk)
+            results.extend(_score([choice], logits, labels))
+            log_fn(f"candidate {ci + 1}/{len(choices)}: loss {results[-1]['test_loss']:.5f}")
+        return results
+
+
+def make_candidate_evaluator(
+    cfg: SuperNetConfig,
+    supernet_params: SuperNet,
+    *,
+    learning_rate: float = 0.04,
+    max_train_steps: int = 500,
+    max_eval_steps: int = 150,
+    lr_schedule: str = "cosine",
+    grad_clip: float = 5.0,
+    adagrad_eps: float = 1e-2,
+    eval_batch_chunk: int = 1024,
+    finetune_mode: str = "final-only",  # final-only | whole | layernorm-calibrate
+    batch_candidates: bool = True,
+    impl: str = "auto",
+) -> CandidateEvaluator:
+    """Build `evaluate(choices, train_iter_fn, test_iter_fn) -> [results]`
+    over the trained supernet `supernet_params` (a SuperNet built from
+    `cfg`, on the device the batches come on; its parameters are read and
+    never changed).  impl='auto' runs the kernels on the card and their
+    plain versions on the CPU; 'plain' names the plain versions.
+    `batch_candidates` changes nothing here (see the module docstring)."""
+    del batch_candidates
+    if supernet_params.cfg != cfg:
+        raise ValueError("make_candidate_evaluator: the supernet was built from another config")
+    if finetune_mode not in FINETUNE_MODES:
+        raise ValueError(f"unknown finetune_mode {finetune_mode!r}")
+    return CandidateEvaluator(
+        supernet_params, learning_rate=learning_rate, max_train_steps=max_train_steps,
+        max_eval_steps=max_eval_steps, lr_schedule=lr_schedule, grad_clip=grad_clip,
+        adagrad_eps=adagrad_eps, eval_batch_chunk=eval_batch_chunk,
+        finetune_mode=finetune_mode, impl=impl)
+
+
+def finetune_and_eval_candidates(
+    cfg: SuperNetConfig,
+    supernet_params: SuperNet,
+    choices: Sequence[Choice],
+    train_iter_fn,
+    test_iter_fn,
+    **kwargs,
+) -> List[Dict]:
+    """Convenience wrapper: build an evaluator and run it once."""
+    evaluator = make_candidate_evaluator(cfg, supernet_params, **kwargs)
+    return evaluator(choices, train_iter_fn, test_iter_fn)

@@ -7,6 +7,8 @@ working while the host prepares the next batch.  A NaN loss returns the
 reference's sentinel logs (loss 999.99 / AUROC -1, ref: train_utils.py:294-301).
 In supernet mode a `sampler` gives every train step its masks, and
 `eval_masks` (masks, or a callable sampled once per eval batch) the eval.
+`freeze_mask` selects the trainable parameters of the search's fine-tune
+modes.
 """
 
 from __future__ import annotations
@@ -29,6 +31,39 @@ class TrainState:
     model: torch.nn.Module
     opt_state: Dict[str, torch.Tensor]
     step: int = 0
+
+
+FREEZE_MODES = ("normal", "final-only", "no-embedding", "layernorm-calibrate")
+
+
+def freeze_mask(model: torch.nn.Module, mode: str) -> Dict[str, bool]:
+    """Parameter name -> trainable, for the reference's fine-tune switches
+    (ref: nasrec/supernet/supernet.py:850-873; `nasrec_tpu/train/loop.py ::
+    freeze_mask_bools`):
+
+      normal               everything trainable
+      final-only           only the final linear ("finetune last only")
+      no-embedding         everything but the embedding table
+      layernorm-calibrate  only LayerNorm scales and biases inside blocks
+
+    The rule is the JAX package's, on the port's names (which mirror its
+    pytree): a LayerNorm parameter is one held by a module named `ln` or
+    ending in `_ln`, so `blocks.0.nodes.5.attn_ln.weight` is one and
+    `final.weight` is not."""
+    if mode not in FREEZE_MODES:
+        raise ValueError(f"unknown freeze mode {mode}")
+
+    def decide(name: str) -> bool:
+        keys = name.split(".")
+        if mode == "normal":
+            return True
+        if mode == "final-only":
+            return keys[0] == "final"
+        if mode == "no-embedding":
+            return keys[0] != "embedding"
+        return keys[0] == "blocks" and any(k == "ln" or k.endswith("_ln") for k in keys[:-1])
+
+    return {name: decide(name) for name, _ in model.named_parameters()}
 
 
 def snapshot_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -15,12 +15,15 @@ hand-written kernel of ops/kernels/table_update.py.
 
 With `has_masks=True` (the supernet) the step takes the choice's masks as a
 `ChoiceMasks` of device tensors or as the `(buffer, idx)` pair that
-`sampling.DeviceMaskBuffer` hands out, selected on the device.
+`sampling.DeviceMaskBuffer` hands out, selected on the device.  `trainable`
+(`train/loop.py :: freeze_mask`) trains a subset: a frozen parameter keeps
+its value and accumulator, as the JAX step's zeroed gradient leaves them,
+and a frozen table is neither differentiated nor updated.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -91,6 +94,7 @@ def make_sparse_embedding_train_step(
     l2_exclude: Optional[str] = None,
     impl: str = "auto",
     has_masks: bool = False,
+    trainable: Optional[Mapping[str, bool]] = None,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
@@ -108,39 +112,46 @@ def make_sparse_embedding_train_step(
             masks = buffer.select(buf_idx)
         model = state.model
         table = model.embedding.table
-        rest = [(n, p) for n, p in model.named_parameters() if n != TABLE]
+        named = [(n, p) for n, p in model.named_parameters() if n != TABLE]
+        rest = [(n, p) for n, p in named if trainable is None or trainable[n]]
+        train_table = trainable is None or trainable[TABLE]
         idx = model.embedding.fused_index(cat)                       # [B, S] int32
         b, s = idx.shape
         with torch.no_grad():
             looked = table.index_select(0, idx.reshape(-1))          # [B*S, E]
         e = looked.shape[-1]
-        stem = looked.reshape(b, s * e).requires_grad_(True)
+        stem = looked.reshape(b, s * e).requires_grad_(train_table)
         if has_masks:
             logits = model.forward_embedded(dense, stem, masks, impl)
         else:
             logits = model.forward_embedded(dense, stem, impl)
         bce = bce_with_logits(logits, y)
-        l2 = l2_penalty(rest, l2_reg, l2_exclude)
+        l2 = l2_penalty(named, l2_reg, l2_exclude)
         # A block whose outputs no later block reads leaves its parameters
         # out of the graph: their gradient is zero, as in the JAX step.
-        grads = torch.autograd.grad(bce + l2, [p for _, p in rest] + [stem],
-                                    allow_unused=True, materialize_grads=True)
-        g_rest, g_stem = grads[:-1], grads[-1]
+        wrt = [p for _, p in rest] + ([stem] if train_table else [])
+        grads = torch.autograd.grad(bce + l2, wrt, allow_unused=True, materialize_grads=True)
+        g_rest = grads[:len(rest)]
 
         with torch.no_grad():
-            rows, seg, _ = rowwise_segment_sum_slotwise(idx, g_stem.reshape(-1, e))
+            if train_table:
+                rows, seg, _ = rowwise_segment_sum_slotwise(idx, grads[-1].reshape(-1, e))
             if grad_clip is not None:
-                # sum(seg^2) is the dense table gradient's squared norm: seg
-                # holds each vocab row's summed gradient once.
                 sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
-                scale = global_norm_scale(sq + torch.sum(torch.square(seg)), grad_clip)
+                if train_table:
+                    # sum(seg^2) is the dense table gradient's squared norm:
+                    # seg holds each vocab row's summed gradient once.
+                    sq = sq + torch.sum(torch.square(seg))
+                scale = global_norm_scale(sq, grad_clip)
                 g_rest = [g * scale for g in g_rest]
-                seg = seg * scale
+                if train_table:
+                    seg = seg * scale
             lr = float(lr_schedule(state.step))
             adagrad_update_([p for _, p in rest], [state.opt_state[n] for n, _ in rest],
                             g_rest, lr, adagrad_eps)
-            sparse_adagrad_table_update(table.data, state.opt_state[TABLE], rows, seg,
-                                        lr, adagrad_eps, impl=impl)
+            if train_table:
+                sparse_adagrad_table_update(table.data, state.opt_state[TABLE], rows, seg,
+                                            lr, adagrad_eps, impl=impl)
         state.step += 1
         metrics = {"loss": bce.detach(), "l2": l2.detach(), "lr": lr,
                    "logits": logits.detach()}

@@ -1,15 +1,19 @@
-"""Fixed-subnet and supernet training as library functions (port of
-`nasrec_tpu/workloads.py :: train_fixed_subnet` and `train_supernet`,
-single-device branches).
+"""The four workloads as library functions (port of `nasrec_tpu/workloads.py`,
+single-device branches): fixed-subnet training, supernet training, the
+weight-shared search over a trained supernet, and the subnet-from-scratch
+evaluation.
 
 Ported: the sparse-embedding path (Adagrad, wd = 0) on one device, on
 synthetic data; supernet training with every path-sampling strategy, resume
 from a checkpoint, evo-2shot candidates, a pretrained table and both eval
-paths; checkpoints (pickle, in the JAX package's layout, so each package
-loads the other's) and `metrics.jsonl`.  Not yet ported, and rejected up
-front with an error that says so: the mesh branch, the host-offload branch,
-orbax checkpoints, the dense-gradient step (other optimizers or wd > 0),
-micro-batches, bf16 compute, and the TSV data pipeline.
+paths; random search, regularized evolution and the re-scoring of a given
+candidate list, in the three fine-tune modes; checkpoints (pickle, in the
+JAX package's layout, so each package loads the other's) and
+`metrics.jsonl`.  Not yet ported, and rejected up front with an error that
+says so: the mesh branch, the host-offload branch, orbax checkpoints, the
+dense-gradient step (other optimizers or wd > 0), micro-batches, bf16
+compute, the TSV data pipeline, and the search's latency criterion with
+beta != 0 (it needs the profiling layer).
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ import dataclasses
 import json
 import os
 import pickle
-from typing import Any, Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
-from nasrec_tpu_torch.choices import choice_to_masks, full_path_choice
+from nasrec_tpu_torch.choices import Choice, choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
 from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
@@ -34,6 +39,7 @@ from nasrec_tpu_torch.models.transplant import (
     to_jax_params,
 )
 from nasrec_tpu_torch.sampling import ChoiceSampler, DeviceMaskBuffer
+from nasrec_tpu_torch.search import SearchConfig, Searcher, Tokenizer, make_candidate_evaluator
 from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint, save_checkpoint_any
 from nasrec_tpu_torch.train.logging import MetricsWriter
 from nasrec_tpu_torch.train.loop import make_eval_step, train_and_test_one_epoch
@@ -92,6 +98,11 @@ def _not_ported(what: str) -> NotImplementedError:
                                "(see ROADMAP.md, Queue A)")
 
 
+def _validate_data(data: DataOptions) -> None:
+    if data.data_source != "synthetic":
+        raise _not_ported("the TSV data pipeline and its flags (use --data_source synthetic)")
+
+
 def _validate(data: DataOptions, train: TrainOptions) -> None:
     if train.mesh_model > 0:
         raise _not_ported("the mesh branch (--mesh_model > 0)")
@@ -105,8 +116,7 @@ def _validate(data: DataOptions, train: TrainOptions) -> None:
         raise _not_ported("micro-batching (--micro_batches > 1)")
     if train.compute_dtype != "float32":
         raise _not_ported("bf16 compute (--compute_dtype bfloat16)")
-    if data.data_source != "synthetic":
-        raise _not_ported("the TSV data pipeline and its flags (use --data_source synthetic)")
+    _validate_data(data)
 
 
 def _train_steps_per_epoch(data: DataOptions, train: TrainOptions) -> int:
@@ -357,3 +367,207 @@ def _dump_logs(logging_dir: Optional[str], epoch_logs, options: Dict, ckpt_paylo
     with open(os.path.join(logging_dir, "train_test_logs.json"), "w") as f:
         json.dump(epoch_logs, f)
     save_checkpoint_any(os.path.join(logging_dir, ckpt_name), ckpt_payload, ckpt_backend)
+
+
+# ---------------------------------------------------------------------------
+# Search (random / regularized EA) over a trained supernet
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SearchOptions:
+    method: str = "regularized-ea"   # regularized-ea | random
+    config: str = "xlarge"
+    num_blocks: int = 7
+    use_layernorm: bool = True
+    ckpt_path: Optional[str] = None
+    learning_rate: float = 0.04
+    max_train_steps: int = 500
+    max_eval_steps: int = 150
+    n_generations: int = 240
+    n_childs: int = 8
+    init_population: int = 128
+    sample_size: int = 64
+    ea_top_k: int = 2
+    budget: int = 200                # random search budget
+    criterion: str = "test_loss"
+    group_size: int = 8
+    seed: int = 0
+    # "final-only" (default): the K candidates of a group advance together
+    # over the frozen body; "whole" / "layernorm-calibrate" fine-tune one
+    # candidate at a time (ref --finetune_whole_supernet).  batch_finetune is
+    # the JAX package's switch between its two forms of those modes; both
+    # give the same numbers, and the port runs one form.
+    finetune_mode: str = "final-only"
+    batch_finetune: bool = True
+    # Latency-aware search (criterion="test_loss_penalty_lat"):
+    # objective = test_loss + beta * (latency / target_latency - 1)
+    # (TuNAS-style relaxation, ref: searcher.py:65-73).  Measuring latency
+    # needs the profiling layer: beta != 0 is not yet ported.
+    beta: float = 0.0
+    target_latency: float = -1.0
+    latency_batch_size: int = 512
+    latency_trials: int = 50
+    latency_estimator: str = "cost-model"
+    device: str = "cuda"
+
+
+def _validate_search(so: SearchOptions, data: DataOptions) -> None:
+    _validate_data(data)
+    if so.latency_estimator not in ("cost-model", "measured"):
+        raise ValueError(f"unknown latency_estimator {so.latency_estimator!r}")
+    if so.criterion == "test_loss_penalty_lat" and so.beta != 0.0:
+        raise _not_ported("the latency criterion (--criterion test_loss_penalty_lat with "
+                          "--beta != 0; it needs the profiling layer)")
+
+
+def _search_setup(so: SearchOptions, data: DataOptions, warning: str, log_fn):
+    """The candidate evaluator over the supernet (from so.ckpt_path, a
+    checkpoint of either package, or random weights from so.seed) and the
+    data streams, on so.device."""
+    device = resolve_device(so.device)
+    spec, vocab = _spec_and_vocab(data)
+    cfg = SuperNetConfig(
+        space=OPS_CONFIG_LIB[so.config], num_blocks=so.num_blocks, num_dense=spec.num_dense,
+        num_sparse=spec.num_sparse, vocab_sizes=vocab, use_layernorm=so.use_layernorm,
+    )
+    supernet = supernet_init(cfg, so.seed, device)
+    if so.ckpt_path:
+        ckpt = load_any_checkpoint(so.ckpt_path)
+        supernet.load_state_dict(from_jax_params(ckpt["params"], cfg))
+    else:
+        # The port draws its own init (not the JAX package's random weights).
+        log_fn(warning)
+    evaluator = make_candidate_evaluator(
+        cfg, supernet,
+        learning_rate=so.learning_rate,
+        max_train_steps=so.max_train_steps,
+        max_eval_steps=so.max_eval_steps,
+        finetune_mode=so.finetune_mode,
+        batch_candidates=so.batch_finetune,
+    )
+    return evaluator, _make_iterators(data, device)
+
+
+def evaluate_choices_from_supernet(
+    choices: List[Dict],
+    so: SearchOptions = SearchOptions(),
+    data: DataOptions = DataOptions(train_batch_size=512, test_batch_size=8192),
+    log_fn: Callable[[str], None] = print,
+) -> List[Dict]:
+    """Weight-shared evaluation of an explicit candidate list (no search):
+    restore the supernet checkpoint, fine-tune and score each choice in
+    group_size groups (ref: eval_subnet_from_supernet.py's fixed
+    --supernet_test_path mode, lines 220-260)."""
+    _validate_search(so, data)
+    evaluator, (train_iter_fn, test_iter_fn) = _search_setup(
+        so, data, "WARNING: no supernet checkpoint; scoring against RANDOM weights", log_fn)
+    results: List[Dict] = []
+    for s in range(0, len(choices), so.group_size):
+        group = choices[s : s + so.group_size]
+        results.extend(evaluator(group, train_iter_fn, test_iter_fn, log_fn=log_fn))
+        log_fn(f"evaluated {min(s + so.group_size, len(choices))}/{len(choices)}")
+    return results
+
+
+def search_from_supernet(
+    so: SearchOptions = SearchOptions(),
+    data: DataOptions = DataOptions(train_batch_size=512, test_batch_size=8192),
+    logging_dir: Optional[str] = None,
+    log_fn: Callable[[str], None] = print,
+) -> List[Dict]:
+    """EA / random search with weight-shared fine-tuning
+    (ref: eval_subnet_from_supernet.py:220-289); writes results.pickle (the
+    top results) and all_results.pickle (every candidate in evaluation
+    order) into logging_dir."""
+    _validate_search(so, data)
+    if so.method not in ("random", "regularized-ea"):
+        raise NotImplementedError(f"method {so.method}")
+    evaluator, (train_iter_fn, test_iter_fn) = _search_setup(
+        so, data, "WARNING: no supernet checkpoint; searching over random weights", log_fn)
+
+    def eval_fn(choices):
+        t0 = time.time()
+        results = evaluator(choices, train_iter_fn, test_iter_fn, log_fn=log_fn)
+        log_fn(f"evaluated {len(choices)} candidates in {time.time() - t0:.1f}s")
+        return results
+
+    tokenizer = Tokenizer(so.num_blocks, OPS_CONFIG_LIB[so.config], seed=so.seed)
+    searcher = Searcher(
+        eval_fn, tokenizer,
+        SearchConfig(criterion=so.criterion, group_size=so.group_size, seed=so.seed,
+                     beta=so.beta, target_latency=so.target_latency),
+        log_fn=log_fn,
+    )
+    if so.method == "random":
+        results = searcher.random_search_from_supernet(
+            budget=so.budget, top_k=min(so.ea_top_k, so.budget)
+        )
+    else:
+        results = searcher.regularized_evolution_from_supernet(
+            n_generations=so.n_generations, n_childs=so.n_childs,
+            init_population=so.init_population, sample_size=so.sample_size,
+            top_k=so.ea_top_k,
+        )
+
+    if logging_dir:
+        os.makedirs(logging_dir, exist_ok=True)
+        with open(os.path.join(logging_dir, "results.pickle"), "wb") as f:
+            pickle.dump(results, f)
+        with open(os.path.join(logging_dir, "all_results.pickle"), "wb") as f:
+            pickle.dump(searcher.all_results, f)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Subnet-from-scratch evaluation (search-space / rank-correlation studies)
+# ---------------------------------------------------------------------------
+
+
+def eval_subnets_from_scratch(
+    num_subnets: int = 10,
+    choices: Optional[List[Choice]] = None,
+    config: str = "xlarge",
+    num_blocks: int = 7,
+    data: DataOptions = DataOptions(),
+    train: TrainOptions = TrainOptions(),
+    use_layernorm: bool = False,
+    logging_dir: Optional[str] = None,
+    seed: int = 0,
+    log_fn: Callable[[str], None] = print,
+) -> List[Dict]:
+    """Train N subnets from scratch under step budgets
+    (ref: eval_subnet_from_scratch.py:188-242); a diverged run gets the
+    sentinel result.  Writes from_scratch_results.pickle into logging_dir."""
+    _validate(data, train)
+    resolve_device(train.device)
+    space = OPS_CONFIG_LIB[config]
+    tokenizer = Tokenizer(num_blocks, space, seed=seed)
+    if choices is None:
+        choices = [tokenizer.generate_random_choice() for _ in range(num_subnets)]
+    results = []
+    for i, choice in enumerate(choices):
+        log_fn(f"--- subnet {i + 1}/{len(choices)}")
+        payload = {
+            "macro": choice["macro"], "micro": choice["micro"],
+            "config": config, "num_blocks": num_blocks,
+        }
+        out = train_fixed_subnet(
+            payload, data, train, use_layernorm=use_layernorm, log_fn=log_fn
+        )
+        logs = out["logs"][-1]
+        result = {
+            "choice": choice,
+            "test_loss": logs["test_loss"][-1] if logs["test_loss"] else 999.99,
+            "test_auroc": logs["test_AUROC"][-1] if logs["test_AUROC"] else -1,
+            "test_acc": logs["test_Accuracy"][-1] if logs["test_Accuracy"] else -1,
+            "hash_token": tokenizer.hash_choice(choice),
+        }
+        if result["test_loss"] >= 999.0:
+            log_fn("subnet diverged; recording sentinel result")
+        results.append(result)
+    if logging_dir:
+        os.makedirs(logging_dir, exist_ok=True)
+        with open(os.path.join(logging_dir, "from_scratch_results.pickle"), "wb") as f:
+            pickle.dump(results, f)
+    return results

@@ -9,7 +9,9 @@ the transformer body and the attention core at batches of 1, 37 and 2048,
 the body with x in both layouts its kernels read in place; the body at S = 64
 and the dot-product at n = 46 (the supernet's shapes) at batches of 1, 7, 33,
 512 and 4096; the supernet's forward and one masked train step at batch 512,
-kernels against plain versions.
+kernels against plain versions; the search's eval body forward at batch 512
+and 1024, and two final-only candidates fine-tuned and scored through the
+kernels against the plain versions.
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -28,7 +30,8 @@ package holds its TPU kernels to), parameter gradients, which sum over every
 position of the batch, 2e-4 of the gradient's largest magnitude.  The saved
 softmax statistic (a base-2 log-sum-exp) rtol 1e-5 / atol 1e-5.  The
 supernet (seven blocks, f32): logits rtol 1e-4 / atol 1e-4, and after one
-train step the loss within 1e-4 and every parameter within 1e-4 (absolute).
+train step the loss within 1e-4 and every parameter within 1e-4 (absolute);
+the final-only evaluator's test losses and fine-tuned finals within 1e-4.
 """
 
 import pytest
@@ -352,3 +355,57 @@ def test_supernet_forward_and_train_step_kernels_match_plain(dev):
     sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
     for name in sd_k:
         assert (sd_k[name] - sd_p[name]).abs().max().item() <= 1e-4, name
+
+
+@pytest.mark.parametrize("batch", [512, 1024])
+def test_search_shapes_body_eval_forward_matches_plain(dev, batch):
+    """The search's eval body forward at S = 64: a fine-tune step's batch (512)
+    and an eval chunk (1024), x as the slot projection leaves it."""
+    x, params, _ = _body_case(dev, batch, 64, batch + 7, "slot_minor")
+    before = transformer_body.LAUNCHES["fwd_s64"]
+    with torch.no_grad():
+        out_k = transformer_body.transformer_body(x, params)
+        out_p = transformer_body.transformer_body(x, params, impl="plain")
+    assert transformer_body.LAUNCHES["fwd_s64"] == before + 1
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
+
+
+def test_final_only_evaluator_kernels_match_plain(dev):
+    """Two final-only candidates over a seven-block xlarge supernet with
+    LayerNorm at batch 512 (eval chunks of 1024): the kernel path launches
+    only the eval body forward and the dot-product forward, 2 x 7 a step, and
+    its scores and fine-tuned finals match the plain path's."""
+    import numpy as np
+
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+    from nasrec_tpu_torch.search import Tokenizer, make_candidate_evaluator
+
+    space = OPS_CONFIG_LIB["xlarge"]
+    cfg = SuperNetConfig(space=space, num_blocks=7, num_dense=13, num_sparse=26,
+                         vocab_sizes=(1000,) * 26, use_layernorm=True)
+    model = supernet_init(cfg, seed=0, device=dev)
+    tok = Tokenizer(7, space, seed=2)
+    picks = [tok.generate_random_choice() for _ in range(2)]
+    rng = np.random.RandomState(0)
+
+    def batch(n):
+        return (torch.as_tensor(rng.randn(n, 13).astype(np.float32), device=dev),
+                torch.as_tensor(rng.randint(0, 1000, size=(n, 26)).astype(np.int32), device=dev),
+                torch.as_tensor(rng.randint(0, 2, size=(n, 1)).astype(np.float32), device=dev))
+
+    train, test = [batch(512) for _ in range(3)], [batch(2048)]
+    args = dict(max_train_steps=4, max_eval_steps=1, eval_batch_chunk=1024)
+    ev_k = make_candidate_evaluator(cfg, model, **args)
+    before = {**dotprod.LAUNCHES, **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()}}
+    res_k = ev_k(picks, lambda: iter(train), lambda: iter(test))
+    after = {**dotprod.LAUNCHES, **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()}}
+    launched = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    # 4 steps and 2 eval chunks, each 2 candidates x 7 blocks.
+    assert launched == {"fwd_n46": 6 * 14, "body_fwd_s64": 6 * 14}
+    ev_p = make_candidate_evaluator(cfg, model, impl="plain", **args)
+    res_p = ev_p(picks, lambda: iter(train), lambda: iter(test))
+    for a, b in zip(res_k, res_p):
+        assert abs(a["test_loss"] - b["test_loss"]) <= 1e-4
+    assert (ev_k.last_group.weight - ev_p.last_group.weight).abs().max().item() <= 1e-4
+    assert (ev_k.last_group.bias - ev_p.last_group.bias).abs().max().item() <= 1e-4
