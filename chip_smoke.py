@@ -42,6 +42,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
               then 4 steps of criteo-kaggle/autoctr.  A torch.profiler window
               over 3 more kernel-path steps prints where the device time
               goes (one "profile" line per arch).
+  3a. data    criteo-shaped TSV shards written from a seed (4 shards, 300,000
+              training and 80,000 test rows; empty, negative and short
+              fields): the C++ parser (built with g++; a failed build fails)
+              against the NumPy transform on the same lines, equal bits; the
+              parser's rows/s by thread count, the stream's at batch 32768,
+              the binary cache's build and read rates and its rows against the
+              stream's; nasrec_tpu_torch.cli.main_train --arch
+              criteo-kaggle/xlarge --root_dir on them (8 steps, one test pass
+              whose last batch of each shard is short), counted; two TSV
+              batches through the kernels and the plain versions; the TSV-fed
+              step against the synthetic step, with the host's wait for each
+              batch and the busy share under the profiler.
+  3b. dense   the dense-gradient step of criteo-kaggle/xlarge at full vocab
+              and batch 32768, for Adam, SGD and Adagrad with wd 1e-6: 3 steps
+              through the kernels, counted (no table update), and 3 through
+              the plain versions from the same weights and batches; step ms,
+              peak memory, and Adam's sign-edge elements counted.
+  3c. micro   the sparse step with 2 micro-batches against 1 at batch 32768
+              (one table update a step), then batch 65536 with 2 and with 1:
+              step ms and peak memory.
   4. supernet one-shot supernet training, criteo-kaggle space xlarge, 7
               blocks with LayerNorm, 3,069,317 rows, batch 512: 12 masked train
               steps (masks from the port's ChoiceSampler through the device
@@ -151,6 +171,27 @@ EVAL_KERNELS = {
 UNFUSED_STEP_KERNELS = (
     {k for k in TRAIN_STEP_KERNELS["xlarge"] if not k.startswith("transformer_body")}
     | {f"tiny_head_attention_{k}_s{s}" for k in ("fwd", "bwd") for s in BODY_SLOTS})
+# Phase 3a (data): criteo-shaped TSV shards made from a seed, 4 shards of
+# 75,000 training rows (2 batches of 32768 each; the short rest is dropped)
+# and 20,000 test rows (a batch of 16368 and a short one of 3,632 each).
+TSV_SHARDS = 4
+TSV_TRAIN_ROWS, TSV_TEST_ROWS = TSV_SHARDS * 75_000, TSV_SHARDS * 20_000
+TSV_TEST_BATCH = 16368
+TSV_TRAIN_BATCHES = TSV_SHARDS * (75_000 // BATCH)
+TSV_TEST_BATCHES = TSV_SHARDS * 2
+TSV_CHECK_LINES = 20_000          # lines parsed by both parsers and compared
+TSV_TIMED_STEPS = 16
+# Phase 3b (dense): the dense-gradient step of criteo-kaggle/xlarge at full
+# vocab, batch 32768, per (optimizer, wd, constant lr); 3 steps through the
+# kernels and 3 through the plain versions.  A step launches the kernels of a
+# sparse step but the table update: the optimizer updates the whole table.
+DENSE_STEPS = 3
+DENSE_SETTINGS = (("adam", 0.0, 1e-3), ("sgd", 0.0, 0.01), ("adagrad", 1e-6, 0.01))
+DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS["xlarge"] - {"table_update"}
+# Phase 3c (micro): the sparse step with 2 micro-batches against 1 at batch
+# 32768 (2 steps), then batch 65536 with 2 and with 1.
+MICRO_STEPS = 2
+MICRO_BIG_BATCH = 2 * BATCH
 # The supernet (phase 5): criteo-kaggle at the search cap of 500,000 rows a
 # slot (config.SEARCH_MAX_NUM_EMBEDDINGS: 3,069,317 rows in all), space
 # xlarge, 7 blocks with LayerNorm, batch 512, eval batch 4096.  Masks from the
@@ -800,6 +841,54 @@ def phase_kernels(hbm):
     return rows_out
 
 
+def xlarge_plan(vocab):
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.configs import get_best_arch
+    from nasrec_tpu_torch.models.fixed import build_fixed_plan
+
+    return build_fixed_plan(get_best_arch("criteo-kaggle", "xlarge"), OPS_CONFIG_LIB["xlarge"],
+                            7, 13, 26, vocab)
+
+
+def device_batches(rng, n, batch, vocab):
+    """n phase-3 batches on the card: N(0,1) dense, uniform indices, 0/1 labels."""
+    import numpy as np
+    import torch
+
+    dev = torch.device(DEVICE)
+    return [(torch.as_tensor(rng.randn(batch, 13).astype(np.float32), device=dev),
+             torch.as_tensor(draw_indices(rng, batch, vocab, "uniform"), device=dev),
+             torch.as_tensor(rng.randint(0, 2, size=(batch, 1)).astype(np.float32), device=dev))
+            for _ in range(n)]
+
+
+def run_steps(step, state, batches):
+    """Each batch through `step`: (losses, seconds a step, last metrics)."""
+    import torch
+
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+        losses.append(float(m["loss"]))
+    return losses, times, m
+
+
+def state_diff(model_a, model_b) -> float:
+    sd_a, sd_b = model_a.state_dict(), model_b.state_dict()
+    return max((sd_a[k] - sd_b[k]).abs().max().item() for k in sd_a)
+
+
+def add_launches(rows_out, launches: dict) -> None:
+    """Launches of phases 3a-3c, counted in the rows of the same kernel and
+    shape (the batch-32768 rows)."""
+    for name, count in launches.items():
+        rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+
+
 def phase_main(space, rows_out):
     """One main path at full width: criteo-kaggle/<space>, kernel run (counted)
     against plain run, then one eval forward of each; for xlarge also a short
@@ -831,11 +920,7 @@ def phase_main(space, rows_out):
     model_u = copy.deepcopy(model_k) if space == "xlarge" else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    batches = [(torch.as_tensor(rng.randn(BATCH, spec.num_dense).astype(np.float32), device=dev),
-                torch.as_tensor(draw_indices(rng, BATCH, vocab, "uniform"), device=dev),
-                torch.as_tensor(rng.randint(0, 2, size=(BATCH, 1)).astype(np.float32), device=dev))
-               for _ in range(steps)]
+    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
 
     def run(model, impl, n):
@@ -868,8 +953,7 @@ def phase_main(space, rows_out):
     plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_p = evaluate(model_p, "plain")
 
-    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
-    param_diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    param_diff = state_diff(model_k, model_p)
     loss_diff = max(abs(a - b) for a, b in zip(losses_k, losses_p))
     logit_diff = (logits_k - logits_p).abs().max().item()
     eval_diff = (eval_k - eval_p).abs().max().item()
@@ -922,6 +1006,441 @@ def phase_main(space, rows_out):
     profile_steps(f"criteo-kaggle/{space}", more_k, 3)
     del model_k, batches, more_k
     torch.cuda.empty_cache()
+    return step_ms
+
+
+def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
+    """Phase 3a: TSV shards through the C++ parser, the stream, the binary
+    cache and the copy to the card; the CLI trained on them; the TSV-fed step
+    against the synthetic one; two TSV batches through kernels and plain."""
+    import os
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.cli import main_train
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.data import cache, pipeline, transforms
+    from nasrec_tpu_torch.data.native import binding
+    from nasrec_tpu_torch.data.synthetic import write_tsv_shards
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    root = tmp / "tsv"
+    t0 = time.perf_counter()
+    write_tsv_shards(str(root), 13, 26, {"trainval": TSV_TRAIN_ROWS, "test": TSV_TEST_ROWS},
+                     TSV_SHARDS, seed=0)
+    write_s = time.perf_counter() - t0
+    transform = transforms.get_transform("criteo-kaggle", VOCAB_CAP)
+    train_paths = pipeline.shard_paths(str(root), "trainval")
+    text = b"".join(Path(p).read_bytes() for p in train_paths)
+
+    # The C++ parser (built here with g++; a failed build raises) against the
+    # NumPy transform on the same lines.
+    t0 = time.perf_counter()
+    if not binding.native_available():
+        raise SystemExit(f"the C++ parser did not build: {binding.build_error()}")
+    build_s = time.perf_counter() - t0
+    lines = text.split(b"\n", TSV_CHECK_LINES)[:TSV_CHECK_LINES]
+    native = binding.parse_ctr_buffer(b"\n".join(lines) + b"\n", 13, 26, transform.vocab,
+                                      transform.zero_dense)
+    numpy_ = transform([l.decode().split("\t") for l in lines])
+    bit_equal = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(native, numpy_))
+    short_rows = sum(1 for l in lines if l.count(b"\t") < 13 + 26)
+
+    def parse_rate(threads):
+        best = math.inf
+        for _ in range(3):
+            s0 = time.perf_counter()
+            binding.parse_ctr_buffer(text, 13, 26, transform.vocab, False, threads)
+            best = min(best, time.perf_counter() - s0)
+        return TSV_TRAIN_ROWS / best
+
+    threads = sorted({1, binding.default_threads(), os.cpu_count() or 1})
+    parser_rows_per_s = {str(t): parse_rate(t) for t in threads}
+
+    train_fn, test_fn = pipeline.make_dataset_iterators(
+        "criteo-kaggle", str(root), train_batch_size=BATCH, test_batch_size=TSV_TEST_BATCH,
+        vocab_cap=VOCAB_CAP, use_native=True)
+    t0 = time.perf_counter()
+    stream = list(train_fn())
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_sizes = [len(b[2]) for b in test_fn()]
+    test_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    prefix = cache.build_binary_cache("criteo-kaggle", str(root), "trainval",
+                                      str(tmp / "cache"), vocab_cap=VOCAB_CAP,
+                                      use_native=True)
+    cache_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = list(cache.open_binary_cache(prefix, BATCH, drop_remainder=False))
+    cache_read_s = time.perf_counter() - t0
+    flat = list(pipeline.batch_iterator(train_paths, BATCH, transform, drop_remainder=False,
+                                        interleave=False, use_native=True))
+    cache_equal = all(np.array_equal(np.concatenate([b[i] for b in cached]),
+                                     np.concatenate([b[i] for b in flat])) for i in range(3))
+    # The stream's batches are the cache's rows, shard by shard in turn.
+    rows = [np.concatenate([b[i] for b in flat]) for i in range(3)]
+    per_shard = TSV_TRAIN_ROWS // TSV_SHARDS
+    starts = [(k % TSV_SHARDS) * per_shard + (k // TSV_SHARDS) * BATCH
+              for k in range(len(stream))]
+    stream_equal = all(np.array_equal(a, r[s0:s0 + BATCH])
+                       for batch, s0 in zip(stream, starts) for a, r in zip(batch, rows))
+    emit({"phase": "data", "train_rows": TSV_TRAIN_ROWS, "test_rows": TSV_TEST_ROWS,
+          "shards": TSV_SHARDS, "text_mb": len(text) / 1e6, "write_s": write_s,
+          "parser_build_s": build_s, "parser_library": binding.library_path().name,
+          "lines_checked": len(lines), "short_rows_checked": short_rows,
+          "native_equal_bits_to_numpy": bit_equal, "host_cpus": os.cpu_count(),
+          "parser_rows_per_s_by_threads": parser_rows_per_s,
+          "stream_batches": len(stream), "stream_rows_per_s": len(stream) * BATCH / stream_s,
+          "test_batch_sizes": test_sizes, "test_stream_rows_per_s": TSV_TEST_ROWS / test_s,
+          "cache_build_rows_per_s": TSV_TRAIN_ROWS / cache_build_s,
+          "cache_read_rows_per_s": TSV_TRAIN_ROWS / cache_read_s,
+          "cache_equal_to_stream": cache_equal, "stream_interleaves_shards": stream_equal})
+    if not (bit_equal and short_rows and cache_equal and stream_equal
+            and len(stream) == TSV_TRAIN_BATCHES
+            and sorted(test_sizes) == sorted([TSV_TEST_BATCH, TSV_TEST_ROWS // TSV_SHARDS
+                                              - TSV_TEST_BATCH] * TSV_SHARDS)):
+        raise SystemExit("the TSV pipeline failed its checks (see the 'data' line)")
+    del stream, cached, flat, text
+
+    # The fixed-subnet CLI on the shards: every training batch, one test pass
+    # over both test batches of each shard (the short ones too).
+    reset_launches()
+    t0 = time.perf_counter()
+    out = main_train.main([
+        "--arch", "criteo-kaggle/xlarge", "--root_dir", str(root), "--device", DEVICE,
+        "--train_batch_size", str(BATCH), "--test_batch_size", str(TSV_TEST_BATCH),
+        "--max_train_steps", str(TSV_TRAIN_BATCHES), "--test_only_at_last_step", "1",
+        "--learning_rate", "0.02", "--display_interval", "1",
+    ])
+    cli_s = time.perf_counter() - t0
+    cli_launches = read_launches()
+    want = Counter({k: TSV_TRAIN_BATCHES for k in TRAIN_STEP_KERNELS["xlarge"]})
+    want.update({k: TSV_TEST_BATCHES for k in EVAL_KERNELS["xlarge"]})
+    logs = out["logs"][0]
+    ok = (len(logs["train_loss"]) == TSV_TRAIN_BATCHES
+          and all(math.isfinite(x) for x in logs["train_loss"])
+          and len(logs["test_loss"]) == 1 and math.isfinite(logs["test_loss"][0])
+          and 0.0 <= logs["test_AUROC"][0] <= 1.0 and cli_launches == dict(want))
+    emit({"phase": "data", "cli": "main_train --arch criteo-kaggle/xlarge --root_dir",
+          "train_loss": logs["train_loss"], "test_loss": logs["test_loss"],
+          "test_auroc": logs["test_AUROC"], "launches": cli_launches, "seconds": cli_s,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("the CLI on TSV shards failed (see the 'data' line)")
+    add_launches(rows_out, cli_launches)
+    del out
+    torch.cuda.empty_cache()
+
+    # Two TSV batches through the kernels and through the plain versions,
+    # from the same weights; then the TSV-fed step timed against the
+    # synthetic one, on the kernel path's model.
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
+    model_k = fixed_init(xlarge_plan(vocab), seed=0, device=dev)
+    model_p = copy.deepcopy(model_k)
+    sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
+    step_k = make_sparse_embedding_train_step(sched, grad_clip=5.0)
+    step_p = make_sparse_embedding_train_step(sched, grad_clip=5.0, impl="plain")
+    two = []
+    for batch in pipeline.device_prefetch(train_fn(), dev):
+        two.append(batch)
+        if len(two) == 2:
+            break
+    reset_launches()
+    state = init_sparse_train_state(model_k)
+    losses_k, _, m_k = run_steps(step_k, state, two)
+    launches = read_launches()
+    losses_p, _, m_p = run_steps(step_p, init_sparse_train_state(model_p), two)
+    loss_diff = max(abs(a - b) for a, b in zip(losses_k, losses_p))
+    logit_diff = (m_k["logits"] - m_p["logits"]).abs().max().item()
+    param_diff = state_diff(model_k, model_p)
+    del model_p, two, m_p
+    torch.cuda.empty_cache()
+
+    def looped():
+        while True:
+            yield from train_fn()
+
+    synthetic = device_batches(np.random.RandomState(0), 4, BATCH, vocab)
+    feed = pipeline.device_prefetch(looped(), dev)
+    reset_launches()
+    for i in range(2):                                    # warm both paths
+        state, _ = step_k(state, *synthetic[i])
+        state, _ = step_k(state, *next(feed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TSV_TIMED_STEPS):
+        state, _ = step_k(state, *synthetic[i % len(synthetic)])
+    torch.cuda.synchronize()
+    synthetic_ms = (time.perf_counter() - t0) / TSV_TIMED_STEPS * 1e3
+    waits = []
+    t0 = time.perf_counter()
+    for _ in range(TSV_TIMED_STEPS):
+        w0 = time.perf_counter()
+        batch = next(feed)
+        waits.append((time.perf_counter() - w0) * 1e3)
+        state, _ = step_k(state, *batch)
+    torch.cuda.synchronize()
+    tsv_ms = (time.perf_counter() - t0) / TSV_TIMED_STEPS * 1e3
+    timed_launches = read_launches()
+    ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
+          and launches == {k: 2 for k in TRAIN_STEP_KERNELS["xlarge"]}
+          and timed_launches == {k: 4 + 2 * TSV_TIMED_STEPS
+                                 for k in TRAIN_STEP_KERNELS["xlarge"]})
+    prof = profile_steps("criteo-kaggle/xlarge, TSV-fed", lambda: step_k(state, *next(feed)), 3)
+    emit({"phase": "data", "kernel_vs_plain_tsv_batches": 2, "losses": losses_k,
+          "losses_plain": losses_p, "max_loss_diff": loss_diff, "max_logit_diff": logit_diff,
+          "max_param_diff": param_diff,
+          "synthetic_step_ms_phase3": synthetic_step_ms,
+          "synthetic_step_ms_unsynced": synthetic_ms, "tsv_step_ms_unsynced": tsv_ms,
+          "tsv_over_synthetic": tsv_ms / synthetic_ms,
+          "host_wait_ms_per_step": waits, "host_wait_ms_median": float(np.median(waits)),
+          "tsv_examples_per_s": BATCH / tsv_ms * 1e3,
+          "profiled_busy_share": prof["device_busy_share"],
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("TSV batches through the kernels failed (see the 'data' line)")
+    add_launches(rows_out, launches)
+    add_launches(rows_out, timed_launches)
+    del model_k, state, feed, synthetic
+    torch.cuda.empty_cache()
+
+
+def phase_dense(rows_out, sparse_step_ms: float):
+    """Phase 3b: the dense-gradient step of criteo-kaggle/xlarge at full vocab
+    and batch 32768 for each of DENSE_SETTINGS: DENSE_STEPS steps through the
+    kernels alone, counted and timed, with their peak memory; then the same
+    steps through the kernels, each followed by the same step through the
+    plain versions from the kernel path's state, compared step by step.
+    Adam's steps move each parameter by about lr whatever its gradient's size
+    (its first by lr times the gradient's sign), so an element whose gradient
+    has opposite signs in the two paths, or is so small that the paths'
+    rounding of it moves the step (`adam_edges`), can end a step up to 2 lr
+    apart in the two paths.  Such elements that differ by more than PARAM_TOL
+    are counted (`sign_edge_elements`); every other element is held to
+    PARAM_TOL, and Adam's moments to the gradient tolerance."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.train.loop import init_train_state, make_train_step
+    from nasrec_tpu_torch.train.optim import (
+        AdamState,
+        Optimizer,
+        copy_state_,
+        make_optimizer,
+        slot_dicts,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
+    plan = xlarge_plan(vocab)
+    batches = device_batches(np.random.RandomState(2), DENSE_STEPS, BATCH, vocab)
+
+    def recording(opt, log):
+        """`opt`, keeping each step's gradients."""
+        def update_(state, names, params, grads, lr_now):
+            log.append(grads)
+            opt.update_(state, names, params, grads, lr_now)
+        return Optimizer(opt.init, update_)
+
+    def adam_edges(g_k, g_p, mu, nu, count, lr):
+        """Elements whose Adam step, lr mu_hat / (sqrt(nu_hat) + eps), the
+        two paths' gradients set more than PARAM_TOL / 2 apart: gradients of
+        opposite signs, or the step's slope in the gradient, |d step / d g|,
+        times the gradients' difference above PARAM_TOL / 2 (tiny gradients,
+        where sqrt(nu_hat) + eps is small, make the slope steep).  mu, nu: the
+        plain path's moments after the step.  The gradients themselves are
+        held through the moments, to the gradient tolerance."""
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+        sv = torch.sqrt(nu / c2)
+        slope = ((1.0 - b1) / c1 / (sv + eps)
+                 + (mu / c1).abs() * (1.0 - b2) / c2 * g_p.abs()
+                 / (sv.clamp(min=eps) * (sv + eps) ** 2))
+        return (((g_k > 0) != (g_p > 0))
+                | (lr * slope * (g_k - g_p).abs() > PARAM_TOL / 2))
+
+    for name, wd, lr in DENSE_SETTINGS:
+        def make(impl, log=None):
+            model = fixed_init(plan, seed=0, device=dev)
+            opt = make_optimizer(name)
+            step = make_train_step(opt if log is None else recording(opt, log),
+                                   lambda s: lr, l2_reg=wd, grad_clip=5.0, impl=impl)
+            return model, init_train_state(model, opt), step
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, state, step = make("auto")
+        reset_launches()
+        _, times, _ = run_steps(step, state, batches)
+        launches = read_launches()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        # Each step of the plain path starts from the kernel path's state, so
+        # that a step's comparison sees that step's rounding alone: an Adam
+        # step that moved an element 2 lr apart would otherwise change every
+        # later gradient, and Adam's normalised steps carry that on.
+        log_k, log_p = [], []
+        model_k, state_k, step_k = make("auto", log_k)
+        model_p, state_p, step_p = make("plain", log_p)
+        names = [n for n, _ in model_k.named_parameters()]
+        adam = isinstance(state_k.opt_state, AdamState)
+        losses_k, losses_p, times_p = [], [], []
+        loss_diff = logit_diff = param_diff = slot_diff = worst_edge = 0.0
+        edges, held = 0, True
+        reset_launches()
+        for batch in batches:
+            with torch.no_grad():
+                for pk, pp in zip(model_k.parameters(), model_p.parameters()):
+                    pp.copy_(pk)
+                copy_state_(state_p.opt_state, state_k.opt_state)
+            state_k, m_k = step_k(state_k, *batch)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            state_p, m_p = step_p(state_p, *batch)
+            torch.cuda.synchronize()
+            times_p.append(time.perf_counter() - s0)
+            losses_k.append(float(m_k["loss"]))
+            losses_p.append(float(m_p["loss"]))
+            loss_diff = max(loss_diff, abs(losses_k[-1] - losses_p[-1]))
+            logit_diff = max(logit_diff, (m_k["logits"] - m_p["logits"]).abs().max().item())
+            slots_k, slots_p = slot_dicts(state_k.opt_state), slot_dicts(state_p.opt_state)
+            for (n, pk), pp, g_k, g_p in zip(model_k.named_parameters(), model_p.parameters(),
+                                             log_k.pop(), log_p.pop()):
+                d = (pk - pp).detach().abs()
+                if adam:
+                    edge = adam_edges(g_k, g_p, slots_p[0][n], slots_p[1][n],
+                                      int(state_p.opt_state.count), lr)
+                    at_edge = (d > PARAM_TOL) & edge
+                    edges += int(at_edge.sum())
+                    if bool(at_edge.any()):
+                        worst_edge = max(worst_edge, d[at_edge].max().item())
+                    d = torch.where(edge, 0.0, d)
+                param_diff = max(param_diff, d.max().item())
+                for k_slot, p_slot in zip(slots_k, slots_p):
+                    err, ok_slot = within(k_slot[n], p_slot[n], GRAD_REL_TOL)
+                    slot_diff = max(slot_diff, err)
+                    held = held and (ok_slot if adam else err <= PARAM_TOL)
+        lockstep = read_launches()        # both paths' launches: the kernel path's alone
+        step_ms = float(np.median(times[1:])) * 1e3
+        plain_step_ms = float(np.median(times_p[1:])) * 1e3
+        ok = (all(math.isfinite(x) for x in losses_k + losses_p)
+              and loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
+              and held and (not adam or int(state_k.opt_state.count) == DENSE_STEPS)
+              and launches == lockstep == {k: DENSE_STEPS for k in DENSE_STEP_KERNELS})
+        emit({"phase": "dense", "arch": "criteo-kaggle/xlarge", "optimizer": name, "wd": wd,
+              "lr": lr, "vocab_rows": int(sum(vocab)), "batch": BATCH, "steps": DENSE_STEPS,
+              "losses": losses_k, "losses_plain": losses_p, "max_loss_diff": loss_diff,
+              "max_logit_diff": logit_diff,
+              "max_param_diff_outside_sign_edges": param_diff, "max_slot_diff": slot_diff,
+              "slots_held_to": "GRAD_REL_TOL" if adam else "PARAM_TOL",
+              "sign_edge_elements": edges, "max_param_diff_at_sign_edges": worst_edge,
+              "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in times],
+              "plain_step_ms": plain_step_ms, "examples_per_s": BATCH / step_ms * 1e3,
+              "sparse_step_ms_phase3": sparse_step_ms, "over_sparse_step": step_ms / sparse_step_ms,
+              "peak_mem_gb": peak_gb, "launches": launches, "ok": ok})
+        if not ok:
+            raise SystemExit(f"the dense step with {name} failed (see the 'dense' line)")
+        add_launches(rows_out, launches)
+        add_launches(rows_out, lockstep)
+        del model_k, model_p, state_k, state_p, slots_k, slots_p, m_k, m_p
+        torch.cuda.empty_cache()
+    emit({"phase": "dense", "phase_s": time.perf_counter() - t_phase})
+
+
+def phase_micro(rows_out):
+    """Phase 3c: the sparse step with micro_batches = 2 against 1 from the same
+    weights and batches at batch 32768 (one table update a step, the body and
+    dot-product kernels once a slice), then batch 65536 with 2 and with 1."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.train.optim import make_lr_schedule, slot_dicts
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
+    plan = xlarge_plan(vocab)
+    sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
+
+    def run(micro, batches):
+        """(model, state, losses, step ms, last logits, launches, peak GB of
+        this run alone: the memory held before it began is subtracted)."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = fixed_init(plan, seed=0, device=dev)
+        state = init_sparse_train_state(model)
+        step = make_sparse_embedding_train_step(sched, grad_clip=5.0, microbatch=micro)
+        reset_launches()
+        losses, times, m = run_steps(step, state, batches)
+        return (model, state, losses, float(np.median(times[1:])) * 1e3, m["logits"],
+                read_launches(), (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+    batches = device_batches(np.random.RandomState(3), MICRO_STEPS, BATCH, vocab)
+    one = run(1, batches)
+    two = run(2, batches)
+    param_diff = state_diff(one[0], two[0])
+    acc_1, acc_2 = slot_dicts(one[1].opt_state)[0], slot_dicts(two[1].opt_state)[0]
+    acc_diff = max((acc_1[k] - acc_2[k]).abs().max().item() for k in acc_1)
+    loss_diff = max(abs(a - b) for a, b in zip(one[2], two[2]))
+    logit_diff = (one[4] - two[4]).abs().max().item()
+    want_two = Counter({k: 2 * MICRO_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]})
+    want_two["table_update"] = MICRO_STEPS
+    ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
+          and acc_diff <= PARAM_TOL
+          and one[5] == {k: MICRO_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]}
+          and two[5] == dict(want_two))
+    emit({"phase": "micro", "arch": "criteo-kaggle/xlarge", "batch": BATCH,
+          "steps": MICRO_STEPS, "losses_micro1": one[2], "losses_micro2": two[2],
+          "max_loss_diff": loss_diff, "max_logit_diff": logit_diff,
+          "max_param_diff": param_diff, "max_accumulator_diff": acc_diff,
+          "step_ms_micro1": one[3], "step_ms_micro2": two[3],
+          "peak_mem_gb_micro1": one[6], "peak_mem_gb_micro2": two[6],
+          "launches_micro1": one[5], "launches_micro2": two[5], "ok": ok})
+    if not ok:
+        raise SystemExit("micro-batches disagree with one slice (see the 'micro' line)")
+    add_launches(rows_out, one[5])
+    add_launches(rows_out, two[5])
+    del one, two, acc_1, acc_2, batches
+    torch.cuda.empty_cache()
+
+    big = device_batches(np.random.RandomState(4), 3, MICRO_BIG_BATCH, vocab)
+    out = {}
+    for micro in (2, 1):
+        model, state, losses, step_ms, _, launches, peak_gb = run(micro, big)
+        out[micro] = dict(losses=losses, step_ms=step_ms, peak_mem_gb=peak_gb,
+                          examples_per_s=MICRO_BIG_BATCH / step_ms * 1e3, launches=launches)
+        add_launches(rows_out, launches)
+        del model, state
+        torch.cuda.empty_cache()
+    ok = all(math.isfinite(x) for r in out.values() for x in r["losses"])
+    emit({"phase": "micro", "batch": MICRO_BIG_BATCH, "micro2": out[2], "micro1": out[1],
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("batch 65536 failed (see the 'micro' line)")
 
 
 def supernet_config(vocab):
@@ -983,11 +1502,7 @@ def phase_supernet(rows_out):
     dp_off = [i for i in range(SN_STEPS) if (act[i, :, dp_k] == 0).any()]
 
     rng = np.random.RandomState(1)
-    batches = [(torch.as_tensor(rng.randn(SN_BATCH, 13).astype(np.float32), device=dev),
-                torch.as_tensor(draw_indices(rng, SN_BATCH, vocab, "uniform"), device=dev),
-                torch.as_tensor(rng.randint(0, 2, size=(SN_BATCH, 1)).astype(np.float32),
-                                device=dev))
-               for _ in range(SN_STEPS)]
+    batches = device_batches(rng, SN_STEPS, SN_BATCH, vocab)
     eval_dense = torch.as_tensor(rng.randn(SN_EVAL_BATCH, 13).astype(np.float32), device=dev)
     eval_cat = torch.as_tensor(draw_indices(rng, SN_EVAL_BATCH, vocab, "uniform"), device=dev)
     eval_masks = full.to(dev)
@@ -1022,8 +1537,7 @@ def phase_supernet(rows_out):
     plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eval_p = evaluate(model_p, "plain")
 
-    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
-    param_diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    param_diff = state_diff(model_k, model_p)
     loss_diff = max(abs(a - b) for a, b in zip(losses_k, losses_p))
     logit_diff = (logits_k - logits_p).abs().max().item()
     eval_diff = (eval_k - eval_p).abs().max().item()
@@ -1313,8 +1827,7 @@ def phase_search(rows_out):
     res_wp = whole_p(picks, train_iter_fn, test_iter_fn)
     plain_launches = read_launches()
     w_loss_diff = max(abs(a["test_loss"] - b["test_loss"]) for a, b in zip(res_w, res_wp))
-    sd_k, sd_p = whole.model.state_dict(), whole_p.model.state_dict()
-    w_param_diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    w_param_diff = state_diff(whole.model, whole_p.model)
     ok = (len(per_step) == SEARCH_WHOLE_CANDIDATES * SEARCH_WHOLE_STEPS
           and all(x == SN_STEP_LAUNCHES for x in per_step) and not plain_launches
           and all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in res_w)
@@ -1449,10 +1962,11 @@ def phase_search_cli(ckpt: Path, tmp: Path):
         raise SystemExit("a search CLI failed (see the 'search_cli' line)")
 
 
-def profile_steps(arch: str, step_fn, steps: int) -> None:
+def profile_steps(arch: str, step_fn, steps: int) -> dict:
     """Where a main-path step's device time goes: torch.profiler over a few
     more kernel-path steps (after the comparison above), device time summed
-    by kernel, and the device's busy share of the wall time."""
+    by kernel, and the device's busy share of the wall time.  Returns the
+    line it prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1483,13 +1997,15 @@ def profile_steps(arch: str, step_fn, steps: int) -> None:
     # a suffix: it transposed as it copied) until the kernel took x and yt.
     own = ("dot_fwd_kernel", "dot_bwd_kernel", "table_update_kernel", "body_fwd_kernel",
            "body_bwd_kernel", "attn_fwd_kernel", "attn_bwd_kernel")
-    emit({"phase": "profile", "arch": arch, "steps": steps,
-          "wall_ms_per_step": wall_ms / steps,
-          "device_ms_per_step": device_ms,
-          "device_busy_share": device_ms * steps / wall_ms if wall_ms else None,
-          "top_ops": listed(rows[:15]),
-          "port_kernels": listed(r for r in rows if any(name in r[1] for name in own)),
-          "cat_ops": listed(r for r in rows if "CatArray" in r[1])})
+    line = {"phase": "profile", "arch": arch, "steps": steps,
+            "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms * steps / wall_ms if wall_ms else None,
+            "top_ops": listed(rows[:15]),
+            "port_kernels": listed(r for r in rows if any(name in r[1] for name in own)),
+            "cat_ops": listed(r for r in rows if "CatArray" in r[1])}
+    emit(line)
+    return line
 
 
 def phase_cli(space):
@@ -1544,13 +2060,15 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device(build)
     rows_out = phase_kernels(hbm_bytes_per_s(smi))
-    for space in ("xlarge", "autoctr"):
-        phase_main(space, rows_out)
-    phase_supernet(rows_out)
-    for space in ("autoctr", "xlarge"):
-        phase_cli(space)
+    step_ms = {space: phase_main(space, rows_out) for space in ("xlarge", "autoctr")}
     tmp = Path(tempfile.mkdtemp(prefix="nasrec_smoke_"))
     try:
+        phase_data(rows_out, tmp, step_ms["xlarge"])
+        phase_dense(rows_out, step_ms["xlarge"])
+        phase_micro(rows_out)
+        phase_supernet(rows_out)
+        for space in ("autoctr", "xlarge"):
+            phase_cli(space)
         ckpt = phase_supernet_cli(tmp)
         phase_search(rows_out)
         phase_search_rank()

@@ -1,14 +1,15 @@
 """Argparse plumbing for the port's CLIs (flag parity with
-`nasrec_tpu/cli/common.py` for the flags the fixed-subnet and supernet
-workloads read, plus --device).  The TSV pipeline's flags (--root_dir,
---train_split, --validate_split, --train_limit) come with that pipeline;
---cap_vocab is read, and matters only there (synthetic data sizes its own
-tables, by --synthetic_vocab rows a slot: a flag of the port, which the
-search CLI needs to load a supernet trained at another synthetic vocab).
-Also left out until their layers are ported: the multi-process
-flags (the mesh branch), --report_flops and --profile_dir (profiling), and
---attention_impl (the port picks kernel or plain version by the tensors'
-device); --loss_function has one value, bce, which is what the step computes."""
+`nasrec_tpu/cli/common.py`, plus --device).  --root_dir, --train_split,
+--validate_split and --train_limit read TSV shards (the default
+--data_source tsv); --cap_vocab 1 caps both the tables and the TSV transform
+at 0.5M rows a slot (search mode).  --synthetic_vocab sizes the tables of
+--data_source synthetic (a flag of the port, which the search CLI needs to
+load a supernet trained at another synthetic vocab).  --optimizer, --wd and
+--micro_batches (sparse-embedding step only) run.  Left out until their
+layers are ported: the multi-process flags (the mesh branch),
+--report_flops and --profile_dir (profiling), and --attention_impl (the port
+picks kernel or plain version by the tensors' device); --loss_function has
+one value, bce, which is what the step computes."""
 
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ from nasrec_tpu_torch.workloads import DataOptions, TrainOptions
 def add_data_args(p: argparse.ArgumentParser, train_bs=256, test_bs=16368):
     p.add_argument("--dataset", default="criteo-kaggle",
                    choices=["criteo-kaggle", "avazu", "kdd"])
+    p.add_argument("--root_dir", default="",
+                   help="TSV root holding shard-*/{train,val,test,trainval}.txt")
     p.add_argument("--data_source", default="tsv", choices=["tsv", "synthetic"],
                    help="'synthetic' runs without real data")
+    p.add_argument("--train_split", default="trainval", choices=["train", "trainval"])
+    p.add_argument("--validate_split", default="test", choices=["val", "test"])
     p.add_argument("--train_batch_size", type=int, default=train_bs)
     p.add_argument("--test_batch_size", type=int, default=test_bs)
     p.add_argument("--cap_vocab", type=int, default=0,
@@ -38,6 +43,8 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
     p.add_argument("--lr_schedule", default="cosine",
                    choices=["cosine", "constant", "constant-no-warmup"])
     p.add_argument("--num_epochs", type=int, default=1)
+    p.add_argument("--train_limit", type=int, default=-1,
+                   help="TSV rows an epoch (-1: the train split's size)")
     p.add_argument("--test_limit", type=int, default=-1)
     p.add_argument("--display_interval", type=int, default=100)
     p.add_argument("--test_interval", type=int, default=2000)
@@ -53,7 +60,9 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--place_embedding_on_cpu", type=int, default=0,
                    help="not yet ported: the host-offload branch")
-    p.add_argument("--micro_batches", type=int, default=1)
+    p.add_argument("--micro_batches", type=int, default=1,
+                   help=">1: run each batch as this many slices (sparse-embedding "
+                        "step; full-batch update math, one slice's activations)")
     p.add_argument("--ckpt_backend", default="pickle", choices=["pickle", "orbax"],
                    help="orbax is not yet ported")
     p.add_argument("--table_update", default="auto", choices=["auto", "scatter", "sweep"],
@@ -67,7 +76,10 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
 def data_options(args) -> DataOptions:
     return DataOptions(
         dataset=args.dataset,
+        root_dir=args.root_dir,
         data_source=args.data_source,
+        train_split=args.train_split,
+        validate_split=args.validate_split,
         train_batch_size=args.train_batch_size,
         test_batch_size=args.test_batch_size,
         vocab_cap=SEARCH_MAX_NUM_EMBEDDINGS if args.cap_vocab == 1 else None,
@@ -82,6 +94,7 @@ def train_options(args) -> TrainOptions:
         optimizer=args.optimizer,
         lr_schedule=args.lr_schedule,
         num_epochs=args.num_epochs,
+        train_limit=args.train_limit,
         test_limit=args.test_limit,
         display_interval=args.display_interval,
         test_interval=args.test_interval,

@@ -1,5 +1,5 @@
 """Dataset and search-space configuration (a copy of the JAX package's
-`nasrec_tpu/config.py`, cut to what the fixed-subnet and supernet paths read).
+`nasrec_tpu/config.py`, cut to what the port reads).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 Values are the reference's (ref: nasrec/utils/config.py:17-41,
@@ -49,23 +49,34 @@ class DatasetSpec:
     num_dense: int
     num_sparse: int
     raw_vocab_sizes: Tuple[int, ...]
+    # Split sizes (train/val/test), ref: nasrec/main_train.py:354-359.
+    num_train: int = 0
+    num_val: int = 0
+    num_test: int = 0
 
     def vocab_sizes(self, cap: int | None = None) -> Tuple[int, ...]:
         return capped_vocab_sizes(self.raw_vocab_sizes, cap)
+
+    @property
+    def num_trainval(self) -> int:
+        return self.num_train + self.num_val
 
 
 DATASETS: Dict[str, DatasetSpec] = {
     "criteo-kaggle": DatasetSpec(
         name="criteo-kaggle", num_dense=13, num_sparse=26,
         raw_vocab_sizes=_RAW_NUM_EMBEDDINGS_CRITEO,
+        num_train=36_672_495, num_val=4_584_061, num_test=4_584_061,
     ),
     "avazu": DatasetSpec(
         name="avazu", num_dense=1, num_sparse=23,
         raw_vocab_sizes=_RAW_NUM_EMBEDDINGS_AVAZU,
+        num_train=32_343_175, num_val=4_042_896, num_test=4_042_896,
     ),
     "kdd": DatasetSpec(
         name="kdd", num_dense=3, num_sparse=10,
         raw_vocab_sizes=_RAW_NUM_EMBEDDINGS_KDD,
+        num_train=119_711_284, num_val=14_963_910, num_test=14_963_910,
     ),
 }
 

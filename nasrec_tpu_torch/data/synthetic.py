@@ -83,3 +83,45 @@ def synthetic_batches(
             yield dense[i : i + batch_size], cat[i : i + batch_size], y[i : i + batch_size]
         if not loop:
             return
+
+
+_HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
+
+
+def synthetic_tsv_lines(n: int, num_dense: int, num_sparse: int, rng: np.random.RandomState,
+                        missing_rate: float = 0.15, short_rate: float = 0.02) -> list:
+    """n raw TSV rows (bytes, no newline) shaped like the Criteo dumps:
+    label 0/1, `num_dense` decimal integers in [-3, 1000), `num_sparse`
+    8-digit hex values over the full 31-bit range; `missing_rate` of the
+    fields empty and `short_rate` of the rows cut short after a random field
+    (their trailing fields missing)."""
+    labels = rng.randint(0, 2, size=(n, 1)).astype("S1")
+    ints = rng.randint(-3, 1000, size=(n, num_dense)).astype("S5")
+    vals = rng.randint(0, 1 << 31, size=(n, num_sparse)).astype(np.uint32)
+    shifts = np.arange(28, -1, -4, dtype=np.uint32)
+    digits = _HEX[(vals[:, :, None] >> shifts) & 15]
+    cats = np.ascontiguousarray(digits).view("S8")[:, :, 0]
+    ints = np.where(rng.rand(n, num_dense) < missing_rate, b"", ints)
+    cats = np.where(rng.rand(n, num_sparse) < missing_rate, b"", cats)
+    fields = np.concatenate([labels, ints.astype("S8"), cats], axis=1).tolist()
+    cut = np.where(rng.rand(n) < short_rate,
+                   rng.randint(1, 1 + num_dense + num_sparse, size=n), 1 + num_dense + num_sparse)
+    return [b"\t".join(row[:k]) for row, k in zip(fields, cut.tolist())]
+
+
+def write_tsv_shards(root: str, num_dense: int, num_sparse: int, rows: dict,
+                     num_shards: int, seed: int = 0, **kw) -> None:
+    """Write `root/shard-<i>/<split>.txt` for each split in `rows`
+    ({split: total rows}), the rows of a split dealt into `num_shards`
+    contiguous parts, from synthetic_tsv_lines with RandomState(seed)."""
+    import os
+
+    rng = np.random.RandomState(seed)
+    for split, total in rows.items():
+        lines = synthetic_tsv_lines(total, num_dense, num_sparse, rng, **kw)
+        bounds = np.linspace(0, total, num_shards + 1).astype(int)
+        for i in range(num_shards):
+            d = os.path.join(root, f"shard-{i}")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"{split}.txt"), "wb") as f:
+                f.write(b"".join(line + b"\n" for line in lines[bounds[i]:bounds[i + 1]]))

@@ -16,6 +16,11 @@ The fused table is [vocab, 16] in both.  Arrays are copied both ways, never
 aliased: a buffer from `device_get` may be read-only or shared with the JAX
 runtime.  Checkpoints of both packages hold this pytree
 (`train/checkpoint.py`), so each package loads the other's.
+
+Optimizer states map slot by slot: Adagrad's accumulators are one pytree
+mirroring the params; SGD's is an `SGDState(momentum)` and Adam's an
+`AdamState(mu, nu, count)` of such pytrees (and an int32 count), in the JAX
+package and, with the same fields, in the port (`train/optim.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn as nn
 
 from nasrec_tpu_torch.models.fixed import FixedPlan
 from nasrec_tpu_torch.models.supernet import SuperNetConfig
+from nasrec_tpu_torch.train.optim import AdamState, SGDState
 
 _TRANSPOSED = {"w": "weight", "w_in": "w_in", "w_out": "w_out"}
 _RENAMED = {"b": "bias", "scale": "weight"}
@@ -76,9 +82,16 @@ def from_jax_params(params_np: Dict[str, Any], spec: ModelSpec) -> Dict[str, tor
     return sd
 
 
-def from_jax_opt_state(opt_np: Dict[str, Any], spec: ModelSpec) -> Dict[str, torch.Tensor]:
-    """JAX Adagrad accumulators (a pytree mirroring the params) -> the port's
-    optimizer state, keyed by parameter name."""
+def from_jax_opt_state(opt_np: Any, spec: ModelSpec) -> Any:
+    """A JAX optimizer state of numpy leaves (Adagrad accumulators mirroring
+    the params, an SGDState or an AdamState) -> the port's state of the same
+    kind, keyed by parameter name."""
+    fields = getattr(opt_np, "_fields", None)    # either package's NamedTuple
+    if fields == SGDState._fields:
+        return SGDState(from_jax_params(opt_np.momentum, spec))
+    if fields == AdamState._fields:
+        return AdamState(from_jax_params(opt_np.mu, spec), from_jax_params(opt_np.nu, spec),
+                         torch.tensor(int(opt_np.count), dtype=torch.int32))
     return from_jax_params(opt_np, spec)
 
 
@@ -109,7 +122,14 @@ def to_jax_params(model: nn.Module) -> Dict[str, Any]:
     return _to_jax_tree(model, dict(model.named_parameters()), "")
 
 
-def to_jax_opt_state(model: nn.Module, opt_state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's Adagrad accumulators (keyed by parameter name) -> the JAX
-    package's opt_state pytree, which mirrors its params."""
+def to_jax_opt_state(model: nn.Module, opt_state: Any) -> Any:
+    """The port's optimizer state (slots keyed by parameter name) -> the JAX
+    package's: a pytree mirroring its params for Adagrad, an SGDState or an
+    AdamState (count as an int32 numpy scalar) of such pytrees."""
+    if isinstance(opt_state, SGDState):
+        return SGDState(_to_jax_tree(model, opt_state.momentum, ""))
+    if isinstance(opt_state, AdamState):
+        return AdamState(_to_jax_tree(model, opt_state.mu, ""),
+                         _to_jax_tree(model, opt_state.nu, ""),
+                         np.asarray(int(opt_state.count), np.int32))
     return _to_jax_tree(model, opt_state, "")

@@ -1,5 +1,5 @@
-"""Train/eval loops (port of `nasrec_tpu/train/loop.py`, the parts the
-fixed-subnet and supernet workloads run).
+"""Train/eval loops and the dense-gradient train step (port of
+`nasrec_tpu/train/loop.py`).
 
 Reference hot loop: nasrec/utils/train_utils.py:181-390.  Metrics are read
 back to the host only on display and test boundaries, so the card keeps
@@ -8,29 +8,40 @@ reference's sentinel logs (loss 999.99 / AUROC -1, ref: train_utils.py:294-301).
 In supernet mode a `sampler` gives every train step its masks, and
 `eval_masks` (masks, or a callable sampled once per eval batch) the eval.
 `freeze_mask` selects the trainable parameters of the search's fine-tune
-modes.
+modes.  `make_train_step` is the step every optimizer runs (SGD, Adam, or
+Adagrad with wd > 0): autograd through the whole model, the table included,
+whose gradient is dense; the sparse-embedding step
+(train/sparse_embedding.py) is the Adagrad, wd = 0 special case.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from nasrec_tpu_torch.train.metrics import auc_exact, binary_accuracy, stable_sigmoid
+from nasrec_tpu_torch.train.metrics import auc_exact, bce_with_logits, binary_accuracy, stable_sigmoid
+from nasrec_tpu_torch.train.optim import Optimizer, global_norm_scale, l2_penalty
+
+TABLE = "embedding.table"
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters are updated in place), the Adagrad
-    accumulators keyed by parameter name, and the host step counter."""
+    """The model (its parameters are updated in place), the optimizer state
+    keyed by parameter name (train/optim.py), and the host step counter."""
 
     model: torch.nn.Module
-    opt_state: Dict[str, torch.Tensor]
+    opt_state: Any
     step: int = 0
+
+
+def init_train_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainState:
+    """Zero optimizer state for every parameter, the table's included."""
+    return TrainState(model, optimizer.init(model.named_parameters()), 0)
 
 
 FREEZE_MODES = ("normal", "final-only", "no-embedding", "layernorm-calibrate")
@@ -64,6 +75,77 @@ def freeze_mask(model: torch.nn.Module, mode: str) -> Dict[str, bool]:
         return keys[0] == "blocks" and any(k == "ln" or k.endswith("_ln") for k in keys[:-1])
 
     return {name: decide(name) for name, _ in model.named_parameters()}
+
+
+def make_train_step(
+    optimizer: Optimizer,
+    lr_schedule: Callable[[int], float],
+    *,
+    l2_reg: float = 0.0,
+    l2_exclude: Optional[str] = None,
+    grad_clip: Optional[float] = 5.0,
+    impl: str = "auto",
+    has_masks: bool = False,
+    trainable: Optional[Mapping[str, bool]] = None,
+):
+    """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in
+    place: BCE plus `l2_reg` times the squared norm of every parameter with
+    ndim >= 2, the table included (`l2_exclude` leaves out names that start
+    with it); gradients of the frozen parameters (`trainable`, from
+    `freeze_mask`) zeroed; the global-norm clip; `optimizer.update_` on every
+    parameter.  As in the JAX step, a frozen parameter still goes through the
+    update with a zero gradient (it moves only where its SGD momentum or Adam
+    moments are nonzero).
+
+    The table's gradient is dense [vocab, 16]: the lookup's backward
+    (index_select -> index_add_) plus the L2 term.  `masks` as in the sparse
+    step: a `ChoiceMasks` or the `(buffer, idx)` pair of a DeviceMaskBuffer.
+    impl='auto' runs the hand-written kernels on the card and their plain
+    versions on the CPU; impl='plain' names the plain versions."""
+
+    def step(state: TrainState, dense, cat, y, masks=None):
+        if has_masks and masks is None:
+            raise ValueError("this step was made with has_masks=True: pass masks")
+        if isinstance(masks, tuple):      # (device mask buffer, index)
+            buffer, buf_idx = masks
+            masks = buffer.select(buf_idx)
+        model = state.model
+        named = list(model.named_parameters())
+        # The table's Parameter is not differentiated by the sparse step; here
+        # a leaf that shares its storage takes its place in the graph.
+        table = model.embedding.table.detach().requires_grad_(
+            trainable is None or trainable[TABLE])
+        leaves = [(n, table if n == TABLE else p) for n, p in named]
+        idx = model.embedding.fused_index(cat)
+        stem = table.index_select(0, idx.reshape(-1)).reshape(idx.shape[0], -1)
+        if has_masks:
+            logits = model.forward_embedded(dense, stem, masks, impl)
+        else:
+            logits = model.forward_embedded(dense, stem, impl)
+        bce = bce_with_logits(logits, y)
+        l2 = l2_penalty(leaves, l2_reg, l2_exclude)
+        live = [i for i, (n, _) in enumerate(leaves) if trainable is None or trainable[n]]
+        # A block whose outputs no later block reads leaves its parameters out
+        # of the graph: their gradient is zero, as in the JAX step.
+        got = torch.autograd.grad(bce + l2, [leaves[i][1] for i in live],
+                                  allow_unused=True, materialize_grads=True)
+        with torch.no_grad():
+            grads = dict(zip(live, got))
+            grads = [grads[i] if i in grads else torch.zeros_like(p)
+                     for i, (_, p) in enumerate(leaves)]
+            if grad_clip is not None:
+                sq = torch.stack([torch.sum(torch.square(g)) for g in grads]).sum()
+                scale = global_norm_scale(sq, grad_clip)
+                grads = [g * scale for g in grads]
+            lr = float(lr_schedule(state.step))
+            optimizer.update_(state.opt_state, [n for n, _ in named],
+                              [p for _, p in named], grads, lr)
+        state.step += 1
+        metrics = {"loss": bce.detach(), "l2": l2.detach(), "lr": lr,
+                   "logits": logits.detach()}
+        return state, metrics
+
+    return step
 
 
 def snapshot_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Sparse (touched-rows-only) embedding training step (port of
-`nasrec_tpu/train/sparse_embedding.py`, single-shot step).
+`nasrec_tpu/train/sparse_embedding.py`, with micro-batches).
 
 The step differentiates w.r.t. the looked-up stem [B, S*E] instead of the
 table, sums duplicate rows' gradients (sort + cumsum segment-sum), and
@@ -28,16 +28,15 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
-from nasrec_tpu_torch.train.loop import TrainState
+from nasrec_tpu_torch.train.loop import TABLE, TrainState, init_train_state
 from nasrec_tpu_torch.train.metrics import bce_with_logits
 from nasrec_tpu_torch.train.optim import (
-    adagrad_init,
-    adagrad_update_,
+    Optimizer,
     global_norm_scale,
     l2_penalty,
+    make_optimizer,
+    slot_dicts,
 )
-
-TABLE = "embedding.table"
 
 
 def rowwise_segment_sum_slotwise(idx2d: torch.Tensor, g: torch.Tensor):
@@ -80,14 +79,25 @@ def sparse_adagrad_table_update(table, acc, rows, seg, lr: float, eps: float = 1
                         seg.contiguous(), lr, eps, row_offset, impl)
 
 
-def init_sparse_train_state(model: torch.nn.Module) -> TrainState:
-    """Zero Adagrad accumulators for every parameter, the table's included."""
-    return TrainState(model, adagrad_init(model.named_parameters()), 0)
+def init_sparse_train_state(model: torch.nn.Module,
+                            optimizer: Optional[Optimizer] = None) -> TrainState:
+    """Zero optimizer state (Adagrad's unless `optimizer` says otherwise) for
+    every parameter, the table's included.  The table's slot of the state's
+    first slot dict (Adagrad's accumulators, SGD's momenta, Adam's mu) holds
+    its Adagrad accumulator, which only the touched-row update reads and
+    writes; its other slots stay zero."""
+    return init_train_state(model, optimizer or make_optimizer("adagrad"))
+
+
+def table_accumulator(opt_state) -> torch.Tensor:
+    """The table's Adagrad accumulator inside a sparse step's optimizer state."""
+    return slot_dicts(opt_state)[0][TABLE]
 
 
 def make_sparse_embedding_train_step(
     lr_schedule: Callable[[int], float],
     *,
+    optimizer: Optional[Optimizer] = None,
     grad_clip: Optional[float] = 5.0,
     adagrad_eps: float = 1e-2,
     l2_reg: float = 0.0,            # applied to non-embedding params only
@@ -95,14 +105,25 @@ def make_sparse_embedding_train_step(
     impl: str = "auto",
     has_masks: bool = False,
     trainable: Optional[Mapping[str, bool]] = None,
+    microbatch: int = 1,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
     `state.model` is a FixedModel (or, with has_masks=True, a SuperNet that
     takes `masks`) whose `embedding.table` is trained here by the touched-row
-    update; every other parameter by dense Adagrad.  impl='auto' runs the
-    hand-written kernels on the card and their plain versions on the CPU;
-    impl='plain' names the plain versions."""
+    Adagrad update; every other parameter by `optimizer` (Adagrad by
+    default), on the state of `init_sparse_train_state(model, optimizer)`.
+    A frozen parameter (`trainable`) keeps its value and its slots.
+    impl='auto' runs the hand-written kernels on the card and their plain
+    versions on the CPU; impl='plain' names the plain versions.
+
+    microbatch > 1 runs the forward and backward one slice of B/m rows at a
+    time (one slice's activations in memory) and keeps the update math of
+    the full batch: the other parameters' gradients are averaged before the
+    clip, and the stem gradients of all slices are concatenated, so that
+    duplicate rows are summed across the whole batch before squaring, in one
+    segment-sum and one table update a step.  B must divide by m."""
+    optimizer = optimizer or make_optimizer("adagrad")
 
     def step(state: TrainState, dense, cat, y, masks=None):
         if has_masks and masks is None:
@@ -117,25 +138,49 @@ def make_sparse_embedding_train_step(
         train_table = trainable is None or trainable[TABLE]
         idx = model.embedding.fused_index(cat)                       # [B, S] int32
         b, s = idx.shape
-        with torch.no_grad():
-            looked = table.index_select(0, idx.reshape(-1))          # [B*S, E]
-        e = looked.shape[-1]
-        stem = looked.reshape(b, s * e).requires_grad_(train_table)
-        if has_masks:
-            logits = model.forward_embedded(dense, stem, masks, impl)
-        else:
-            logits = model.forward_embedded(dense, stem, impl)
-        bce = bce_with_logits(logits, y)
-        l2 = l2_penalty(named, l2_reg, l2_exclude)
-        # A block whose outputs no later block reads leaves its parameters
-        # out of the graph: their gradient is zero, as in the JAX step.
-        wrt = [p for _, p in rest] + ([stem] if train_table else [])
-        grads = torch.autograd.grad(bce + l2, wrt, allow_unused=True, materialize_grads=True)
-        g_rest = grads[:len(rest)]
+        if b % microbatch:
+            raise ValueError(f"batch {b} not divisible by microbatch {microbatch}")
+        rows_per = b // microbatch
 
+        def forward_backward(sl):
+            with torch.no_grad():
+                looked = table.index_select(0, idx[sl].reshape(-1))  # [b*S, E]
+            stem = looked.reshape(looked.shape[0] // s, -1).requires_grad_(train_table)
+            if has_masks:
+                logits = model.forward_embedded(dense[sl], stem, masks, impl)
+            else:
+                logits = model.forward_embedded(dense[sl], stem, impl)
+            bce = bce_with_logits(logits, y[sl])
+            l2 = l2_penalty(named, l2_reg, l2_exclude)
+            # A block whose outputs no later block reads leaves its parameters
+            # out of the graph: their gradient is zero, as in the JAX step.
+            wrt = [p for _, p in rest] + ([stem] if train_table else [])
+            grads = torch.autograd.grad(bce + l2, wrt, allow_unused=True,
+                                        materialize_grads=True)
+            return bce.detach(), l2.detach(), logits.detach(), grads
+
+        slices = [forward_backward(slice(i * rows_per, (i + 1) * rows_per))
+                  for i in range(microbatch)]
         with torch.no_grad():
+            n_rest = len(rest)
+            if microbatch == 1:
+                bce, l2, logits, grads = slices[0]
+                g_rest, d_stem = grads[:n_rest], grads[n_rest:]
+            else:
+                inv_m = 1.0 / microbatch
+                bce = torch.stack([x[0] for x in slices]).mean()
+                l2 = slices[0][1]
+                logits = torch.cat([x[2] for x in slices])
+                g_rest = [g.clone() for g in slices[0][3][:n_rest]]
+                for *_, more in slices[1:]:
+                    for acc, g in zip(g_rest, more[:n_rest]):
+                        acc.add_(g)
+                g_rest = [g * inv_m for g in g_rest]
+                # Slices stack in the full batch's row order, as idx does.
+                d_stem = [torch.cat([x[3][n_rest] for x in slices]) * inv_m] if train_table else []
             if train_table:
-                rows, seg, _ = rowwise_segment_sum_slotwise(idx, grads[-1].reshape(-1, e))
+                rows, seg, _ = rowwise_segment_sum_slotwise(
+                    idx, d_stem[0].reshape(-1, table.shape[1]))
             if grad_clip is not None:
                 sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
                 if train_table:
@@ -147,14 +192,13 @@ def make_sparse_embedding_train_step(
                 if train_table:
                     seg = seg * scale
             lr = float(lr_schedule(state.step))
-            adagrad_update_([p for _, p in rest], [state.opt_state[n] for n, _ in rest],
-                            g_rest, lr, adagrad_eps)
+            optimizer.update_(state.opt_state, [n for n, _ in rest],
+                              [p for _, p in rest], g_rest, lr)
             if train_table:
-                sparse_adagrad_table_update(table.data, state.opt_state[TABLE], rows, seg,
-                                            lr, adagrad_eps, impl=impl)
+                sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
+                                            rows, seg, lr, adagrad_eps, impl=impl)
         state.step += 1
-        metrics = {"loss": bce.detach(), "l2": l2.detach(), "lr": lr,
-                   "logits": logits.detach()}
+        metrics = {"loss": bce, "l2": l2, "lr": lr, "logits": logits}
         return state, metrics
 
     return step

@@ -3,17 +3,19 @@ single-device branches): fixed-subnet training, supernet training, the
 weight-shared search over a trained supernet, and the subnet-from-scratch
 evaluation.
 
-Ported: the sparse-embedding path (Adagrad, wd = 0) on one device, on
-synthetic data; supernet training with every path-sampling strategy, resume
-from a checkpoint, evo-2shot candidates, a pretrained table and both eval
-paths; random search, regularized evolution and the re-scoring of a given
-candidate list, in the three fine-tune modes; checkpoints (pickle, in the
-JAX package's layout, so each package loads the other's) and
-`metrics.jsonl`.  Not yet ported, and rejected up front with an error that
-says so: the mesh branch, the host-offload branch, orbax checkpoints, the
-dense-gradient step (other optimizers or wd > 0), micro-batches, bf16
-compute, the TSV data pipeline, and the search's latency criterion with
-beta != 0 (it needs the profiling layer).
+Ported: data from TSV shards (the C++ parser, a prefetch thread and a copy to
+the card on a side stream, data/pipeline.py) or synthetic; the
+sparse-embedding step (Adagrad with wd = 0, micro-batches, any optimizer for
+the other parameters with sparse_embedding=True) and the dense-gradient step
+(SGD, Adam, or Adagrad with wd > 0), each on one device; supernet training
+with every path-sampling strategy, resume from a checkpoint (any optimizer's
+state), evo-2shot candidates, a pretrained table and both eval paths; random
+search, regularized evolution and the re-scoring of a given candidate list,
+in the three fine-tune modes; checkpoints (pickle, in the JAX package's
+layout, so each package loads the other's) and `metrics.jsonl`.  Not yet
+ported, and rejected up front with an error that says so: the mesh branch,
+the host-offload branch, orbax checkpoints, bf16 compute, and the search's
+latency criterion with beta != 0 (it needs the profiling layer).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from nasrec_tpu_torch.choices import Choice, choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
+from nasrec_tpu_torch.data.pipeline import device_prefetch, make_dataset_iterators
 from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
 from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint
@@ -42,8 +45,13 @@ from nasrec_tpu_torch.sampling import ChoiceSampler, DeviceMaskBuffer
 from nasrec_tpu_torch.search import SearchConfig, Searcher, Tokenizer, make_candidate_evaluator
 from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint, save_checkpoint_any
 from nasrec_tpu_torch.train.logging import MetricsWriter
-from nasrec_tpu_torch.train.loop import make_eval_step, train_and_test_one_epoch
-from nasrec_tpu_torch.train.optim import make_lr_schedule
+from nasrec_tpu_torch.train.loop import (
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+    train_and_test_one_epoch,
+)
+from nasrec_tpu_torch.train.optim import copy_state_, make_lr_schedule, make_optimizer
 from nasrec_tpu_torch.train.sparse_embedding import (
     init_sparse_train_state,
     make_sparse_embedding_train_step,
@@ -53,7 +61,10 @@ from nasrec_tpu_torch.train.sparse_embedding import (
 @dataclasses.dataclass
 class DataOptions:
     dataset: str = "criteo-kaggle"
+    root_dir: str = ""                # TSV root: shard-*/{train,val,test,trainval}.txt
     data_source: str = "tsv"          # tsv | synthetic
+    train_split: str = "trainval"
+    validate_split: str = "test"
     train_batch_size: int = 256
     test_batch_size: int = 16368
     vocab_cap: Optional[int] = None   # SEARCH_MAX_NUM_EMBEDDINGS during search (TSV)
@@ -62,6 +73,9 @@ class DataOptions:
     # Per-slot table size for synthetic data; must cover the synthetic index
     # range (an out-of-range index would land in the next slot's rows).
     synthetic_vocab: int = 1000
+    # This process reads the shards where shard_idx % num_hosts == host_id.
+    host_id: int = 0
+    num_hosts: int = 1
 
 
 @dataclasses.dataclass
@@ -71,6 +85,7 @@ class TrainOptions:
     optimizer: str = "adagrad"
     lr_schedule: str = "cosine"
     num_epochs: int = 1
+    train_limit: int = -1             # TSV: rows an epoch (-1: the split's size)
     test_limit: int = -1
     display_interval: int = 100
     test_interval: int = 2000
@@ -86,7 +101,11 @@ class TrainOptions:
     compute_dtype: str = "float32"
     place_embedding_on_cpu: bool = False
     ckpt_backend: str = "pickle"
-    micro_batches: int = 1
+    # "auto": the sparse-embedding step for adagrad with wd = 0, else the
+    # dense-gradient step; True / False force one (True with another
+    # optimizer trains the other parameters with it).
+    sparse_embedding: Any = "auto"
+    micro_batches: int = 1            # sparse step only: slices a batch
     # Every choice runs the touched-row update (the kernel on the card);
     # train_supernet refuses "sweep", as the JAX package does.
     table_update: str = "auto"
@@ -99,8 +118,17 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _validate_data(data: DataOptions) -> None:
-    if data.data_source != "synthetic":
-        raise _not_ported("the TSV data pipeline and its flags (use --data_source synthetic)")
+    if data.data_source not in ("tsv", "synthetic"):
+        raise ValueError(f"unknown data_source {data.data_source!r}")
+    if data.data_source == "tsv" and not data.root_dir:
+        raise ValueError("data_source 'tsv' needs root_dir (--root_dir), the directory "
+                         "that holds shard-*/")
+
+
+def _use_sparse_embedding(train: TrainOptions) -> bool:
+    if isinstance(train.sparse_embedding, bool):
+        return train.sparse_embedding
+    return train.optimizer == "adagrad" and train.wd == 0.0
 
 
 def _validate(data: DataOptions, train: TrainOptions) -> None:
@@ -110,19 +138,28 @@ def _validate(data: DataOptions, train: TrainOptions) -> None:
         raise _not_ported("the host-offload branch (--place_embedding_on_cpu)")
     if train.ckpt_backend == "orbax":
         raise _not_ported("orbax checkpoints (--ckpt_backend orbax)")
-    if train.optimizer != "adagrad" or train.wd != 0.0:
-        raise _not_ported("the dense-gradient step (optimizer other than adagrad, or wd > 0)")
-    if train.micro_batches != 1:
-        raise _not_ported("micro-batching (--micro_batches > 1)")
     if train.compute_dtype != "float32":
         raise _not_ported("bf16 compute (--compute_dtype bfloat16)")
+    if train.micro_batches < 1:
+        raise ValueError(f"micro_batches must be at least 1, got {train.micro_batches}")
+    if train.micro_batches > 1 and not _use_sparse_embedding(train):
+        # The JAX package's single-device dense step ignores the flag.
+        raise ValueError("micro_batches > 1 needs the sparse-embedding step "
+                         "(adagrad with wd = 0, or sparse_embedding=True)")
+    make_optimizer(train.optimizer)
     _validate_data(data)
 
 
 def _train_steps_per_epoch(data: DataOptions, train: TrainOptions) -> int:
     if train.max_train_steps != -1:
         return train.max_train_steps
-    return data.synthetic_train_examples // data.train_batch_size
+    if data.data_source == "synthetic":
+        return data.synthetic_train_examples // data.train_batch_size
+    limit = train.train_limit
+    if limit == -1:
+        spec = DATASETS[data.dataset]
+        limit = spec.num_trainval if data.train_split == "trainval" else spec.num_train
+    return limit // data.train_batch_size
 
 
 def _max_eval_steps(data: DataOptions, train: TrainOptions) -> int:
@@ -141,19 +178,49 @@ def _spec_and_vocab(data: DataOptions):
 
 
 def _make_iterators(data: DataOptions, device):
+    """(train_iter_fn, test_iter_fn) of batches of tensors on `device`: the
+    synthetic stream (made on the device), or the TSV shards through the
+    host pipeline and device_prefetch."""
     spec = DATASETS[data.dataset]
-    sspec = SyntheticSpec(num_dense=spec.num_dense, num_sparse=spec.num_sparse,
-                          vocab=data.synthetic_vocab)
+    if data.data_source == "synthetic":
+        sspec = SyntheticSpec(num_dense=spec.num_dense, num_sparse=spec.num_sparse,
+                              vocab=data.synthetic_vocab)
 
-    def train_iter():
-        return synthetic_batches(data.synthetic_train_examples, data.train_batch_size,
-                                 sspec, seed=0, loop=True, device=device)
+        def train_iter():
+            return synthetic_batches(data.synthetic_train_examples, data.train_batch_size,
+                                     sspec, seed=0, loop=True, device=device)
 
-    def test_iter():
-        return synthetic_batches(data.synthetic_test_examples, data.test_batch_size,
-                                 sspec, seed=1, device=device)
+        def test_iter():
+            return synthetic_batches(data.synthetic_test_examples, data.test_batch_size,
+                                     sspec, seed=1, device=device)
 
-    return train_iter, test_iter
+        return train_iter, test_iter
+    host_train, host_test = make_dataset_iterators(
+        data.dataset, data.root_dir,
+        train_batch_size=data.train_batch_size, test_batch_size=data.test_batch_size,
+        train_split=data.train_split, validate_split=data.validate_split,
+        vocab_cap=data.vocab_cap, host_id=data.host_id, num_hosts=data.num_hosts,
+    )
+    return (lambda: device_prefetch(host_train(), device),
+            lambda: device_prefetch(host_test(), device))
+
+
+def _make_step(train: TrainOptions, sched, **kw):
+    """The sparse-embedding step or the dense-gradient step, by
+    `_use_sparse_embedding`, with its fresh state's optimizer."""
+    opt = make_optimizer(train.optimizer)
+    common = dict(grad_clip=train.grad_clip, l2_reg=train.wd,
+                  l2_exclude=train.no_reg_param_name, **kw)
+    if _use_sparse_embedding(train):
+        return opt, make_sparse_embedding_train_step(
+            sched, optimizer=opt, microbatch=train.micro_batches, **common)
+    return opt, make_train_step(opt, sched, **common)
+
+
+def _init_state(model, opt, train: TrainOptions):
+    if _use_sparse_embedding(train):
+        return init_sparse_train_state(model, opt)
+    return init_train_state(model, opt)
 
 
 def train_fixed_subnet(
@@ -184,11 +251,13 @@ def train_fixed_subnet(
     num_warmup = steps_per_epoch // 10 // train.num_epochs  # ref: main_train.py:164
     sched = make_lr_schedule(train.lr_schedule, train.learning_rate,
                              num_train_steps, num_warmup)
-    state = init_sparse_train_state(model)
-    step = make_sparse_embedding_train_step(
-        sched, grad_clip=train.grad_clip, l2_reg=train.wd,
-        l2_exclude=train.no_reg_param_name,
-    )
+    if train.table_update not in ("auto", "scatter", "sweep"):
+        raise ValueError(f"unknown table_update {train.table_update!r}")
+    if train.table_update == "sweep" and not _use_sparse_embedding(train):
+        raise ValueError("table_update='sweep' requires the sparse-embedding path "
+                         "(adagrad, wd=0 or sparse_embedding=True)")
+    opt, step = _make_step(train, sched)
+    state = _init_state(model, opt, train)
     eval_step = make_eval_step()
     train_iter, test_iter = _make_iterators(data, device)
 
@@ -272,23 +341,18 @@ def train_supernet(
     num_warmup = steps_per_epoch // 10 // train.num_epochs
     sched = make_lr_schedule(train.lr_schedule, train.learning_rate,
                              num_train_steps, num_warmup)
-    state = init_sparse_train_state(model)
+    opt, step = _make_step(train, sched, has_masks=True)
+    state = _init_state(model, opt, train)
     start_step = 0
     if sn.checkpoint_path:
         ckpt = load_any_checkpoint(sn.checkpoint_path)
         model.load_state_dict(from_jax_params(ckpt["params"], cfg))
         if ckpt.get("opt_state") is not None:
-            acc = from_jax_opt_state(ckpt["opt_state"], cfg)
-            for name, a in state.opt_state.items():
-                a.copy_(acc[name])
+            copy_state_(state.opt_state, from_jax_opt_state(ckpt["opt_state"], cfg))
         start_step = int(ckpt.get("step", 0))
         log_fn(f"resumed from {sn.checkpoint_path} at step {start_step}")
     state.step = start_step
 
-    step = make_sparse_embedding_train_step(
-        sched, grad_clip=train.grad_clip, l2_reg=train.wd,
-        l2_exclude=train.no_reg_param_name, has_masks=True,
-    )
     eval_step = make_eval_step(has_masks=True)
     candidates = None
     if sn.evo_2shot_candidates_path:

@@ -11,7 +11,10 @@ and the dot-product at n = 46 (the supernet's shapes) at batches of 1, 7, 33,
 512 and 4096; the supernet's forward and one masked train step at batch 512,
 kernels against plain versions; the search's eval body forward at batch 512
 and 1024, and two final-only candidates fine-tuned and scored through the
-kernels against the plain versions.
+kernels against the plain versions; device_prefetch's copies on a side stream
+against blocking copies over 50 batches; the dense-gradient step's launches (no
+table update) for Adam, SGD and Adagrad with wd > 0, against its plain step;
+and the micro-batched sparse step's single table update against one slice.
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -409,3 +412,114 @@ def test_final_only_evaluator_kernels_match_plain(dev):
         assert abs(a["test_loss"] - b["test_loss"]) <= 1e-4
     assert (ev_k.last_group.weight - ev_p.last_group.weight).abs().max().item() <= 1e-4
     assert (ev_k.last_group.bias - ev_p.last_group.bias).abs().max().item() <= 1e-4
+
+
+def test_device_prefetch_matches_a_blocking_copy(dev):
+    """50 batches through device_prefetch (pinned host buffers, copies on a side
+    stream, 2 ahead) equal the same batches copied with .to(dev), while the
+    consumer's stream is kept busy between batches."""
+    import numpy as np
+
+    from nasrec_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.RandomState(0)
+    batches = [(rng.randn(4096, 13).astype(np.float32),
+                rng.randint(0, 1 << 30, size=(4096, 26)).astype(np.int32),
+                rng.randint(0, 2, size=(4096, 1)).astype(np.float32)) for _ in range(50)]
+    busy = torch.randn(2048, 2048, device=dev)
+    got = []
+    for out in device_prefetch(iter(batches), dev):
+        busy = busy @ busy / 2048.0                  # queue work on the consumer's stream
+        got.append(tuple(t.clone() for t in out))
+    torch.cuda.synchronize()
+    assert len(got) == 50
+    for g, host in zip(got, batches):
+        for t, a in zip(g, host):
+            assert t.device.type == "cuda"
+            assert torch.equal(t, torch.from_numpy(a).to(dev))
+
+
+def _fixed_case(dev, batch, vocab=1000):
+    import numpy as np
+
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.configs import get_best_arch
+    from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
+
+    plan = build_fixed_plan(get_best_arch("criteo-kaggle", "xlarge"), OPS_CONFIG_LIB["xlarge"],
+                            7, 13, 26, (vocab,) * 26)
+    rng = np.random.RandomState(1)
+    data = (torch.as_tensor(rng.randn(batch, 13).astype(np.float32), device=dev),
+            torch.as_tensor(rng.randint(0, vocab, size=(batch, 26)).astype(np.int32), device=dev),
+            torch.as_tensor(rng.randint(0, 2, size=(batch, 1)).astype(np.float32), device=dev))
+    return fixed_init(plan, seed=0, device=dev), data
+
+
+def _launches():
+    return {**{"dot_" + k: v for k, v in dotprod.LAUNCHES.items()},
+            **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()},
+            **table_update.LAUNCHES}
+
+
+def _launched(before):
+    return {k: v - before.get(k, 0) for k, v in _launches().items() if v != before.get(k, 0)}
+
+
+XLARGE_STEP = {"dot_fwd_n40": 1, "dot_fwd_n9": 1, "dot_bwd_n40": 1, "dot_bwd_n9": 1,
+               "body_fwd_train_s64": 1, "body_fwd_train_s48": 1, "body_bwd_s64": 1,
+               "body_bwd_s48": 1}
+
+
+@pytest.mark.parametrize("optimizer,wd", [("adam", 0.0), ("sgd", 0.0), ("adagrad", 1e-6)])
+def test_dense_step_launches_the_body_and_dot_product_kernels(dev, optimizer, wd):
+    """One dense-gradient xlarge step launches the body and dot-product kernels
+    forward and backward, and no table update; its loss and parameters match
+    the plain step's."""
+    import copy
+
+    from nasrec_tpu_torch.train.loop import init_train_state, make_train_step
+    from nasrec_tpu_torch.train.optim import make_optimizer
+
+    model_k, batch = _fixed_case(dev, 1024)
+    model_p = copy.deepcopy(model_k)
+    losses = []
+    for model, impl in ((model_k, "auto"), (model_p, "plain")):
+        opt = make_optimizer(optimizer)
+        step = make_train_step(opt, lambda s: 1e-3, l2_reg=wd, impl=impl)
+        before = _launches()
+        _, metrics = step(init_train_state(model, opt), *batch)
+        losses.append(float(metrics["loss"]))
+        assert _launched(before) == (XLARGE_STEP if impl == "auto" else {})
+    assert abs(losses[0] - losses[1]) <= 1e-4
+    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
+    # Adam's first step moves an element by lr times its gradient's sign: an
+    # element whose gradient rounds to opposite signs differs by 2 lr.
+    tol = 1e-4 + (2e-3 if optimizer == "adam" else 0.0)
+    for name in sd_k:
+        assert (sd_k[name] - sd_p[name]).abs().max().item() <= tol, name
+
+
+def test_micro_batched_step_updates_the_table_once(dev):
+    """micro_batches = 2: each slice launches the body and dot-product kernels,
+    the step one table update; parameters and accumulators match one slice's."""
+    import copy
+
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model_1, batch = _fixed_case(dev, 2048)
+    model_2 = copy.deepcopy(model_1)
+    states = []
+    for model, micro in ((model_1, 1), (model_2, 2)):
+        step = make_sparse_embedding_train_step(lambda s: 0.05, microbatch=micro)
+        before = _launches()
+        state, _ = step(init_sparse_train_state(model), *batch)
+        assert _launched(before) == {**{k: micro for k in XLARGE_STEP}, "table_update": 1}
+        states.append(state)
+    sd_1, sd_2 = model_1.state_dict(), model_2.state_dict()
+    for name in sd_1:
+        assert (sd_1[name] - sd_2[name]).abs().max().item() <= 1e-4, name
+        a_1, a_2 = states[0].opt_state[name], states[1].opt_state[name]
+        assert (a_1 - a_2).abs().max().item() <= 1e-4, name

@@ -3,7 +3,8 @@ tokenizer's random choices, mutations and hashes; the Searcher's random
 search and regularized evolution with a scripted score function (histories
 and all_results) for every criterion; `freeze_mask`'s trainable sets mapped
 through the transplant; the EA export tool's files; the fixed-subnet CLI's
-`--net supernet` options; and the refusals of what is not yet ported.
+`--net supernet` options; the refusals of what is not yet ported; and the
+search, the re-scoring and the from-scratch evaluation on TSV shards.
 
 Tolerance: none.  Choices, hashes, histories, trainable sets and exported
 files must be equal.
@@ -164,7 +165,6 @@ def test_main_train_net_supernet_trains_the_full_path(monkeypatch):
 def _refusals():
     """Each unported branch, called with device 'cuda' on a machine without
     a card: the refusal must come before the device check and any work."""
-    tsv = workloads.DataOptions(data_source="tsv")
     syn = workloads.DataOptions(data_source="synthetic")
     lat = workloads.SearchOptions(criterion="test_loss_penalty_lat", beta=0.5,
                                   target_latency=1.0, device="cuda")
@@ -173,12 +173,6 @@ def _refusals():
                                        SearchConfig(distribute=True)),
         "latency_search": lambda: workloads.search_from_supernet(lat, syn),
         "latency_rescore": lambda: workloads.evaluate_choices_from_supernet([], lat, syn),
-        "tsv_search": lambda: workloads.search_from_supernet(
-            workloads.SearchOptions(device="cuda"), tsv),
-        "tsv_rescore": lambda: workloads.evaluate_choices_from_supernet(
-            [], workloads.SearchOptions(device="cuda"), tsv),
-        "tsv_scratch": lambda: workloads.eval_subnets_from_scratch(
-            2, data=tsv, train=workloads.TrainOptions(device="cuda")),
     }
 
 
@@ -186,3 +180,51 @@ def _refusals():
 def test_unported_search_branches_raise_up_front(what):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _refusals()[what]()
+
+
+@pytest.fixture(scope="module")
+def tsv_data(tmp_path_factory):
+    """A 2-shard criteo-shaped TSV root, read with the search's vocab cap."""
+    from nasrec_tpu_torch.config import SEARCH_MAX_NUM_EMBEDDINGS
+    from nasrec_tpu_torch.data.synthetic import write_tsv_shards
+
+    root = tmp_path_factory.mktemp("tsv")
+    write_tsv_shards(str(root), 13, 26, {"trainval": 2 * 64, "test": 2 * 40}, 2, seed=4)
+    return workloads.DataOptions(root_dir=str(root), vocab_cap=SEARCH_MAX_NUM_EMBEDDINGS,
+                                 train_batch_size=32, test_batch_size=32)
+
+
+def _tsv_search_options(**kw):
+    return workloads.SearchOptions(config="autoctr", num_blocks=2, max_train_steps=2,
+                                   max_eval_steps=2, group_size=2, device="cpu", **kw)
+
+
+def test_search_runs_on_tsv(tsv_data, tmp_path):
+    """A random search over a supernet on TSV batches: its tables are the
+    search cap's (500,000 rows a slot where the slot has more)."""
+    out = workloads.search_from_supernet(_tsv_search_options(method="random", budget=3,
+                                                             ea_top_k=2),
+                                         tsv_data, logging_dir=str(tmp_path),
+                                         log_fn=lambda m: None)
+    assert len(out) == 2 and all(np.isfinite(r["test_loss"]) for r in out)
+    with open(tmp_path / "all_results.pickle", "rb") as f:
+        assert len(pickle.load(f)) == 3
+
+
+def test_rescore_runs_on_tsv(tsv_data):
+    tok = Tokenizer(2, OPS_CONFIG_LIB["autoctr"], seed=3)
+    picks = [tok.generate_random_choice() for _ in range(3)]
+    out = workloads.evaluate_choices_from_supernet(picks, _tsv_search_options(), tsv_data,
+                                                   log_fn=lambda m: None)
+    assert [r["choice"] for r in out] == picks
+    assert all(np.isfinite(r["test_loss"]) and 0.0 <= r["test_auroc"] <= 1.0 for r in out)
+
+
+def test_scratch_runs_on_tsv(tsv_data, tmp_path):
+    out = workloads.eval_subnets_from_scratch(
+        2, config="autoctr", num_blocks=2, data=tsv_data,
+        train=workloads.TrainOptions(max_train_steps=2, test_interval=2, learning_rate=0.02,
+                                     device="cpu"),
+        logging_dir=str(tmp_path), log_fn=lambda m: None)
+    assert len(out) == 2 and all(np.isfinite(r["test_loss"]) for r in out)
+    assert (tmp_path / "from_scratch_results.pickle").exists()

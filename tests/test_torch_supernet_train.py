@@ -304,7 +304,26 @@ def test_train_supernet_options(tmp_path):
     with pytest.raises(ValueError, match="scatter"):
         train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, "table_update": "sweep"}))
     for field, value in (("mesh_model", 2), ("place_embedding_on_cpu", True),
-                         ("ckpt_backend", "orbax"), ("micro_batches", 2),
-                         ("compute_dtype", "bfloat16")):
+                         ("ckpt_backend", "orbax"), ("compute_dtype", "bfloat16")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, field: value}))
+
+
+def test_train_supernet_micro_batches_train_as_one_slice():
+    """micro_batches = 2 trains the supernet (the table's touched rows and
+    every other parameter move) and ends where micro_batches = 1 ends."""
+    sn = SupernetOptions(config="autoctr", num_blocks=2, supernet_training_steps=0)
+    data = DataOptions(data_source="synthetic", train_batch_size=32, test_batch_size=32,
+                       synthetic_vocab=50)
+    runs = [train_supernet_fn(sn, data, TrainOptions(max_train_steps=2, max_eval_steps=1,
+                                                     test_interval=2, device="cpu",
+                                                     micro_batches=m), log_fn=lambda s: None)
+            for m in (1, 2)]
+    fresh = supernet_init(runs[0]["cfg"], seed=0, device="cpu").state_dict()
+    one, two = (r["state"].model.state_dict() for r in runs)
+    assert any(not torch.equal(two[k], fresh[k]) for k in two if k.startswith("blocks."))
+    assert not torch.equal(two["final.weight"], fresh["final.weight"])
+    assert (two["embedding.table"] != fresh["embedding.table"]).any(1).sum() > 0
+    for name in one:
+        np.testing.assert_allclose(two[name].numpy(), one[name].numpy(), err_msg=name, **TOL)
+

@@ -134,9 +134,28 @@ def test_unported_branches_raise():
     base = ["--arch", "criteo-kaggle/autoctr", "--data_source", "synthetic",
             "--device", "cpu"]
     for extra in (["--mesh_model", "2"], ["--place_embedding_on_cpu", "1"],
-                  ["--ckpt_backend", "orbax"], ["--wd", "0.1"]):
+                  ["--ckpt_backend", "orbax"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             main_train.main(base + extra)
+
+
+def test_cli_wd_trains_through_the_dense_step():
+    """--wd > 0 takes the dense-gradient step, whose L2 term reaches every
+    parameter of two or more dimensions, the table's untouched rows too."""
+    out = main_train.main(["--arch", "criteo-kaggle/autoctr", "--data_source", "synthetic",
+                           "--device", "cpu", "--wd", "0.1", "--max_train_steps", "2",
+                           "--max_eval_steps", "1", "--train_batch_size", "32",
+                           "--test_batch_size", "64", "--synthetic_vocab", "2000"])
+    state = out["state"]
+    assert state.step == 2 and np.all(np.isfinite(out["logs"][0]["train_loss"]))
+    assert out["logs"][0]["train_loss"] and all(np.isfinite(out["logs"][0]["test_loss"]))
+    fresh = fixed_init(out["plan"], seed=0, device="cpu").state_dict()
+    for name, value in state.model.state_dict().items():
+        # Weights of blocks that nothing reads move by the L2 term alone.
+        if value.dim() >= 2 or name.startswith("final"):
+            assert not torch.equal(value, fresh[name]), name
+    table = state.model.embedding.table.detach()
+    assert bool((table != fresh["embedding.table"]).any(1).all())
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):
