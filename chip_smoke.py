@@ -32,7 +32,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
               table (3,069,317 rows) at batch 512, each with cold_ms; and the
               search's shapes: the body's eval forward at S = 64 for batch 512
               and 1024 (an eval chunk), the dot-product forward at n = 46 for
-              batch 1024.
+              batch 1024.  And in bf16 (rows "_bf16"), at batch 32768: the
+              body and the attention core at S = 64 and 48, the dot-product at
+              n = 40, 9, 46 and 17, each against its plain version in bf16
+              (one bf16 ulp, f32 parameter gradients within 1e-3), with
+              cold_ms and the library call in bf16.
   3. main     sparse-embedding train steps at full Criteo vocab (33,762,601
               rows) and batch 32768 through the kernels, counted, then the
               same steps from the same weights through the plain versions:
@@ -42,6 +46,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
               then 4 steps of criteo-kaggle/autoctr.  A torch.profiler window
               over 3 more kernel-path steps prints where the device time
               goes (one "profile" line per arch).
+  3d. amp     phase 3's steps with compute_dtype bfloat16 (the AMP leg of the
+              JAX bench): 10 xlarge and 4 autoctr steps at full vocab, batch
+              32768, through the kernels, counted a step (body and dot-product
+              in bf16, the table update in f32), each against the plain
+              versions from the kernel path's state before it; an eval
+              forward; 2 xlarge steps unfused (the attention kernel in bf16);
+              step ms against phase 3's f32 step, peak memory, a profile line.
   3a. data    criteo-shaped TSV shards written from a seed (4 shards, 300,000
               training and 80,000 test rows; empty, negative and short
               fields): the C++ parser (built with g++; a failed build fails)
@@ -70,13 +81,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
               the kernels, with the launches of every step counted (7 body
               forward and 7 backward at S = 64, 7 dot-product forward and 7
               backward at n = 46, 1 table update), then the same steps through
-              the plain versions, and a profile line.
+              the plain versions, and a profile line; then the same 12 steps
+              in bf16, each against the plain versions from the same state.
   5. cli      nasrec_tpu_torch.cli.main_train on synthetic data, once per
               arch; 40 steps must lower the test loss, lift the AUROC above
               0.6 and launch every kernel of the path (counted as in phase 3).
+              main_train --compute_dtype bfloat16 on xlarge, held to the same.
               Then nasrec_tpu_torch.cli.train_supernet at 7 blocks and batch
               512 with a logging dir, resumed from its checkpoint; the resumed
-              checkpoint reloads into a fresh model with equal eval logits.
+              checkpoint reloads into a fresh model with equal eval logits;
+              and 3 steps of it with --compute_dtype bfloat16.
   6. search   the weight-shared search at the canonical search configuration
               of the JAX CLI (nasrec_tpu/cli/eval_subnet_from_supernet.py:3-10):
               the phase-4 supernet (space xlarge, 7 blocks, LayerNorm, 3,069,317
@@ -142,6 +156,32 @@ KERNEL_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-4
 RELU_MARGIN = 1e-5   # |ReLU input| below this: the side taken is a matter of rounding
 LOSS_TOL, LOGIT_TOL, PARAM_TOL = 1e-4, 1e-3, 1e-4
+# Tolerances (bf16 compute: activations in bf16, f32 inside the kernels).
+# Kernel vs plain: both sides round one f32 value to bf16 per output, so an
+# output is held to one bf16 unit in the last place (ulp) elementwise, or to
+# BF16_FLOOR of the largest element where an f32 sum cancelled far below its
+# terms (the two sums then differ by their own rounding, several ulps of so
+# small a value); the body's f32 parameter gradients to 1e-3 of the largest
+# element, and its f32 residuals o and the statistic as in f32.  A library
+# call that rounds to bf16 after each op is a yardstick where it agrees with
+# the plain version to BF16_LIB_TOL of the largest output.  Train steps in
+# bf16 are compared step by step, each plain step from the kernel path's
+# state before it (a bf16 rounding that lands the other way in one step moves
+# the next step's inputs by an ulp, and a run of steps would compare that
+# drift, not the step): losses within BF16_LOSS_TOL of the loss; logits
+# within BF16_LOGIT_TOL of the largest logit, four bf16 ulps of a value at
+# the foot of its binade (a logit is the bf16 output of the final linear,
+# seven blocks of bf16 ops after an output that one path rounded the other
+# way; 2 ulps at xlarge on the H100);
+# parameters within PARAM_TOL; Adagrad accumulators within BF16_SLOT_TOL of
+# their largest element (or of 1): a bf16 linear's weight and bias gradients
+# are rounded to bf16 before their cast to f32, and a gradient that rounds to
+# the neighbouring bf16 value moves its square by 2^-7 of itself (4.6e-4 at
+# xlarge on the H100, where the largest element is below 1).
+BF16_FLOOR = 1e-6
+BF16_PARAM_GRAD_TOL = 1e-3
+BF16_LIB_TOL = 5e-2
+BF16_LOSS_TOL, BF16_LOGIT_TOL, BF16_SLOT_TOL = 1e-3, 2 ** -5, 2 ** -6
 # The transformer nodes the xlarge step runs: blocks 0 (S = 64) and 6 (S = 48).
 # Block 5 holds one more, at S = 16, but nothing reads the outputs of blocks
 # 3 to 5, so the model skips them (models/fixed.py :: live_blocks); that shape
@@ -171,6 +211,13 @@ EVAL_KERNELS = {
 UNFUSED_STEP_KERNELS = (
     {k for k in TRAIN_STEP_KERNELS["xlarge"] if not k.startswith("transformer_body")}
     | {f"tiny_head_attention_{k}_s{s}" for k in ("fwd", "bwd") for s in BODY_SLOTS})
+# Phase 3d (amp): the steps of phase 3 with compute_dtype bfloat16, the AMP leg
+# of the JAX package's bench.py (:197-205); the unfused run's losses against
+# the fused run's first steps within AMP_UNFUSED_LOSS_TOL of the loss (the
+# unfused form rounds to bf16 after every op, the fused one once).
+AMP_STEPS = {"xlarge": 10, "autoctr": 4}
+AMP_UNFUSED_STEPS = 2
+AMP_UNFUSED_LOSS_TOL = 2e-2
 # Phase 3a (data): criteo-shaped TSV shards made from a seed, 4 shards of
 # 75,000 training rows (2 batches of 32768 each; the short rest is dropped)
 # and 20,000 test rows (a batch of 16368 and a short one of 3,632 each).
@@ -205,6 +252,7 @@ SN_EVAL_BATCH = 4096
 SN_STEPS = 12
 SN_WARMUP = 4
 SN_CLI_STEPS, SN_RESUME_STEPS = 6, 3
+SN_BF16_CLI_STEPS = 3
 # Every block runs every node, whatever its gate: a transformer body at S = 64
 # (its slots projected to 64) and a dot-product at n = 46 (45 projected slots
 # and the dense row).  Launches of one train step, and of one eval forward:
@@ -305,6 +353,54 @@ def max_err(a, b) -> tuple:
     d = (a.float() - b.float()).abs().max().item()
     scale = b.float().abs().max().item()
     return d, d / max(scale, 1e-30), scale
+
+
+def ordered_bits(t):
+    """bf16 values as integers in their order: neighbours differ by one."""
+    import torch
+
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def within_ulp(got, want) -> tuple:
+    """(max abs error, max ulps, ok) of bf16 outputs: ok where every element
+    is within one ulp, or within BF16_FLOOR of the largest |want|.  The ulps
+    are the largest among the elements beyond that floor (below it, a value
+    near zero may be thousands of ulps from a neighbour of the other sign)."""
+    diff = (got.float() - want.float()).abs()
+    ulps = (ordered_bits(got) - ordered_bits(want)).abs()
+    picked = ulps[diff > BF16_FLOOR * want.float().abs().max().item()]
+    max_ulps = int(picked.max().item()) if picked.numel() else 0
+    return diff.max().item(), max_ulps, max_ulps <= 1
+
+
+def agree(got, want, rel_tol) -> tuple:
+    """(max abs error, ok) of a kernel output against the plain version's:
+    `within` for f32, `within_ulp` for bf16 (rel_tol is then not used)."""
+    import torch
+
+    if want.dtype == torch.bfloat16:
+        err, _, ok = within_ulp(got, want)
+        return err, ok
+    return within(got, want, rel_tol)
+
+
+def dtype_of(name: str):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def bf16_named(names):
+    """Launch keys of a bf16 run: every kernel but the table update (f32 under
+    bf16 compute) has "_bf16" added.  A set or a dict of counts."""
+    def rename(k):
+        return k if k.startswith("table_update") else k + "_bf16"
+
+    if isinstance(names, dict):
+        return {rename(k): v for k, v in names.items()}
+    return {rename(k) for k in names}
 
 
 def kernel_modules():
@@ -427,13 +523,16 @@ def relu_edge_rows(x, params):
 
 
 def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
-                           kinds=("fwd", "fwd_train", "bwd"), cold=False) -> None:
+                           kinds=("fwd", "fwd_train", "bwd"), cold=False,
+                           dtype="float32") -> None:
     """The body kernels at [batch, slots, 16] against the plain version: the
     eval forward, the training forward (out, o, statistic), the backward (dx
     and each of the twelve parameter gradients), equal bits from two backward
     runs and from both layouts of x, and the times of the rows in `kinds`,
     named with `suffix`.  x is laid out as the main path gives it: the
-    transposed view of a contiguous [batch, 16, slots]."""
+    transposed view of a contiguous [batch, 16, slots].  dtype "bfloat16":
+    x, dout, out and dx in bf16 (o, the statistic and the parameters f32),
+    rows named "_bf16", outputs held to a bf16 ulp (the tolerances above)."""
     import torch
     import torch.nn.functional as F
 
@@ -441,18 +540,22 @@ def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
     from nasrec_tpu_torch.ops.kernels.attention import softmax_lse2, tiny_head_attention_plain
 
     dev = torch.device(DEVICE)
-    x = torch.randn(batch, 16, slots, device=dev, generator=gen).transpose(1, 2)
-    dout = torch.randn(batch, slots, 16, device=dev, generator=gen)
+    dt = dtype_of(dtype)
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        suffix += "_bf16"
+    x = torch.randn(batch, 16, slots, device=dev, generator=gen).to(dt).transpose(1, 2)
+    dout = torch.randn(batch, slots, 16, device=dev, generator=gen).to(dt)
     params = []
     for name, shape in zip(tb.PARAM_NAMES, tb.PARAM_SHAPES):
         p = 0.3 * torch.randn(shape, device=dev, generator=gen)
         params.append(p + 0.17 if name in ("attn_ln_w", "fc_ln_w") else p)
     flat = tb.flatten_params(params)
 
-    unsure = relu_edge_rows(x, params)
+    unsure = relu_edge_rows(x.float(), params)
     dout[unsure] = 0.0
-    with torch.no_grad():        # the plain attention output and statistics
-        qkv = F.linear(x, params[0], params[1])
+    with torch.no_grad():        # the plain attention output and statistics (f32)
+        qkv = F.linear(x.float(), params[0], params[1])
         o_p = tiny_head_attention_plain(qkv)
         stats_p = softmax_lse2(qkv)
         del qkv
@@ -481,25 +584,30 @@ def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
     out_g = tb.transformer_body_plain(xg, pg)
     grads_p = torch.autograd.grad(out_g, [xg] + pg, dout, retain_graph=True)
     errs, scales, ok = {}, {}, same_bits and same_layouts
+    param_tol = BF16_PARAM_GRAD_TOL if bf16 else GRAD_REL_TOL
     for key, got, want, tol in (
             [("out", out_e, out_g.detach(), KERNEL_REL_TOL), ("o", o_k, o_p, KERNEL_REL_TOL),
              ("stats", stats_k, stats_p, KERNEL_REL_TOL), ("dx", dx_k, grads_p[0], GRAD_REL_TOL)]
-            + [(f"d_{n}", g.reshape(w.shape), w, GRAD_REL_TOL)
+            + [(f"d_{n}", g.reshape(w.shape), w, param_tol)
                for n, g, w in zip(tb.PARAM_NAMES, dflat_k.split(tb.PARAM_SIZES), grads_p[1:])]):
-        errs[key], good = within(got, want, tol)
+        errs[key], good = agree(got, want, tol)
         scales[key] = want.abs().max().item()
         ok = ok and good
-    emit({"phase": "kernels", "kernel": "transformer_body", "slots": slots, "batch": batch,
-          "max_abs_err": errs, "grad_scale": scales, "equal_bits_twice": same_bits,
-          "equal_bits_both_layouts": same_layouts,
+    ulps = ({"out": within_ulp(out_e, out_g.detach())[1], "dx": within_ulp(dx_k, grads_p[0])[1]}
+            if bf16 else None)
+    emit({"phase": "kernels", "kernel": "transformer_body", "dtype": dtype, "slots": slots,
+          "batch": batch, "max_abs_err": errs, "max_ulps": ulps, "grad_scale": scales,
+          "equal_bits_twice": same_bits, "equal_bits_both_layouts": same_layouts,
           "rows_at_a_relu_edge": int(unsure.sum()), "ok": ok})
     if not ok:
-        raise SystemExit(f"transformer_body S={slots} disagrees with its plain version")
+        raise SystemExit(f"transformer_body S={slots} ({dtype}) disagrees with its plain "
+                         "version")
     del o_p, stats_p
 
     # The one library module that computes the same function, timed only.
     lib = torch.nn.TransformerEncoderLayer(16, 8, dim_feedforward=16, dropout=0.0,
-                                           batch_first=True, norm_first=False, device=dev)
+                                           batch_first=True, norm_first=False, device=dev,
+                                           dtype=dt)
     with torch.no_grad():
         for dst, src in zip((lib.self_attn.in_proj_weight, lib.self_attn.in_proj_bias,
                              lib.self_attn.out_proj.weight, lib.self_attn.out_proj.bias,
@@ -517,46 +625,47 @@ def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
 
     # A yardstick only: where the library refuses the shape or disagrees with
     # the plain version, the rows carry no library time.
+    lib_tol = BF16_LIB_TOL if bf16 else 10 * KERNEL_REL_TOL
     try:
         out_l = lib(xl)
-        lib_err, lib_ok = within(out_l.detach(), out_g.detach(), 10 * KERNEL_REL_TOL)
-        lib_err = max(lib_err, within(lib_eval(), out_g.detach(), 10 * KERNEL_REL_TOL)[0])
-        lib_ok = lib_ok and lib_err <= 10 * KERNEL_REL_TOL * max(1.0, out_g.abs().max().item())
+        lib_err, lib_ok = within(out_l.detach(), out_g.detach(), lib_tol)
+        lib_err = max(lib_err, within(lib_eval(), out_g.detach(), lib_tol)[0])
+        lib_ok = lib_ok and lib_err <= lib_tol * max(1.0, out_g.float().abs().max().item())
         note = None
     except RuntimeError as exc:
         out_l, lib_err, lib_ok, note = None, None, False, str(exc)[:200]
-    emit({"phase": "kernels", "library": "nn.TransformerEncoderLayer", "slots": slots,
-          "batch": batch,
+    emit({"phase": "kernels", "library": "nn.TransformerEncoderLayer", "dtype": dtype,
+          "slots": slots, "batch": batch,
           "max_abs_err_vs_plain": lib_err, "agrees": lib_ok, "error": note})
 
     pos = batch * slots
     f_fwd, f_bwd = body_flops(slots)
-    tensor_bytes = pos * 16 * 4
-    # Tensors moved, in units of one [B, S, 16]: x and out; with o and the
-    # statistic [B, S, 8]; x, dout, o, the statistic and dx.
-    for kind, kern, plain, lib_fn, ntensors, flops, err in (
+    act, f32 = pos * 16 * x.element_size(), pos * 16 * 4
+    # Bytes moved: x and out; with o and the statistic [B, S, 8], both f32;
+    # x, dout, o, the statistic and dx.
+    for kind, kern, plain, lib_fn, nbytes, flops, err in (
         ("fwd",
          lambda: tb.transformer_body_fwd_kernel(x, flat, save=False),
          lambda: no_grad_call(tb.transformer_body_plain, x, params), lib_eval,
-         2, f_fwd, errs["out"]),
+         2 * act, f_fwd, errs["out"]),
         ("fwd_train",
          lambda: tb.transformer_body_fwd_kernel(x, flat, save=True),
          lambda: tb.transformer_body_plain(xg, pg), lambda: lib(xl),
-         3.5, f_fwd, max(errs["out"], errs["o"], errs["stats"])),
+         2 * act + 1.5 * f32, f_fwd, max(errs["out"], errs["o"], errs["stats"])),
         ("bwd",
          lambda: tb.transformer_body_bwd_kernel(x, dout, o_k, stats_k, flat),
          lambda: torch.autograd.grad(out_g, [xg] + pg, dout, retain_graph=True),
          lambda: torch.autograd.grad(out_l, [xl] + lib_params, dout, retain_graph=True),
-         4.5, f_bwd, max(v for k, v in errs.items() if k.startswith("d"))),
+         3 * act + 1.5 * f32, f_bwd, max(v for k, v in errs.items() if k.startswith("d"))),
     ):
         if kind not in kinds:
             continue
         name = f"transformer_body_{kind}_s{slots}{suffix}"
         rows_out[name] = kernel_row(name, BODY_SOURCE, BODY_REPLACES, err, kern, plain,
                                     lib_fn if lib_ok else None,
-                                    ntensors * tensor_bytes + 2 * flat.numel() * 4,
+                                    nbytes + 2 * flat.numel() * 4,
                                     flops * pos, hbm, heavy=True, exps=8 * slots * pos,
-                                    cold=cold)
+                                    cold=cold or bf16)
     del out_g, out_l, grads_p, xg, xl
     torch.cuda.empty_cache()
 
@@ -568,29 +677,37 @@ def no_grad_call(fn, *args):
         return fn(*args)
 
 
-def check_attention(slots, hbm, gen, rows_out) -> None:
+def check_attention(slots, hbm, gen, rows_out, dtype="float32") -> None:
     """The attention kernel at [BATCH, slots, 48], forward and backward,
-    against the plain version; F.scaled_dot_product_attention as the library."""
+    against the plain version; F.scaled_dot_product_attention as the library.
+    dtype "bfloat16": qkv, do, o and dqkv in bf16, rows named "_bf16"."""
     import torch
     import torch.nn.functional as F
 
     from nasrec_tpu_torch.ops.kernels import attention as at
 
     dev = torch.device(DEVICE)
-    qkv = torch.randn(BATCH, slots, 48, device=dev, generator=gen)
-    do = torch.randn(BATCH, slots, 16, device=dev, generator=gen)
+    dt = dtype_of(dtype)
+    bf16 = dt == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    qkv = torch.randn(BATCH, slots, 48, device=dev, generator=gen).to(dt)
+    do = torch.randn(BATCH, slots, 16, device=dev, generator=gen).to(dt)
     o_k = at.tiny_head_attention_fwd_kernel(qkv)
     dqkv_k = at.tiny_head_attention_bwd_kernel(qkv, do)
     qg = qkv.clone().requires_grad_(True)
     o_g = at.tiny_head_attention_plain(qg)
     (dqkv_p,) = torch.autograd.grad(o_g, qg, do, retain_graph=True)
     torch.cuda.synchronize()
-    fe, f_ok = within(o_k, o_g.detach(), KERNEL_REL_TOL)
-    be, b_ok = within(dqkv_k, dqkv_p, GRAD_REL_TOL)
-    emit({"phase": "kernels", "kernel": "tiny_head_attention", "slots": slots,
-          "batch": BATCH, "o_max_abs_err": fe, "dqkv_max_abs_err": be, "ok": f_ok and b_ok})
+    fe, f_ok = agree(o_k, o_g.detach(), KERNEL_REL_TOL)
+    be, b_ok = agree(dqkv_k, dqkv_p, GRAD_REL_TOL)
+    ulps = ({"o": within_ulp(o_k, o_g.detach())[1], "dqkv": within_ulp(dqkv_k, dqkv_p)[1]}
+            if bf16 else None)
+    emit({"phase": "kernels", "kernel": "tiny_head_attention", "dtype": dtype, "slots": slots,
+          "batch": BATCH, "o_max_abs_err": fe, "dqkv_max_abs_err": be, "max_ulps": ulps,
+          "ok": f_ok and b_ok})
     if not (f_ok and b_ok):
-        raise SystemExit(f"tiny_head_attention S={slots} disagrees with its plain version")
+        raise SystemExit(f"tiny_head_attention S={slots} ({dtype}) disagrees with its plain "
+                         "version")
 
     ql = qkv.clone().requires_grad_(True)
 
@@ -599,26 +716,28 @@ def check_attention(slots, hbm, gen, rows_out) -> None:
         return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(BATCH, slots, 16)
 
     o_l = sdpa(ql)
-    lib_err, lib_ok = within(o_l.detach(), o_g.detach(), 10 * KERNEL_REL_TOL)
-    emit({"phase": "kernels", "library": "F.scaled_dot_product_attention", "slots": slots,
-          "max_abs_err_vs_plain": lib_err, "agrees": lib_ok})
+    lib_err, lib_ok = within(o_l.detach(), o_g.detach(),
+                             BF16_LIB_TOL if bf16 else 10 * KERNEL_REL_TOL)
+    emit({"phase": "kernels", "library": "F.scaled_dot_product_attention", "dtype": dtype,
+          "slots": slots, "max_abs_err_vs_plain": lib_err, "agrees": lib_ok})
     pos = BATCH * slots
     f_fwd, f_bwd = attention_flops(slots)
     for name, kern, plain, lib_fn, nfloats, flops, exps, err in (
-        (f"tiny_head_attention_fwd_s{slots}",
+        (f"tiny_head_attention_fwd_s{slots}{sfx}",
          lambda: at.tiny_head_attention_fwd_kernel(qkv),
          lambda: no_grad_call(at.tiny_head_attention_plain, qkv),
          lambda: no_grad_call(sdpa, qkv), 48 + 16, f_fwd, 8 * slots, fe),
         # Nothing is saved, so the backward first needs the forward's work too.
-        (f"tiny_head_attention_bwd_s{slots}",
+        (f"tiny_head_attention_bwd_s{slots}{sfx}",
          lambda: at.tiny_head_attention_bwd_kernel(qkv, do),
          lambda: torch.autograd.grad(o_g, qg, do, retain_graph=True),
          lambda: torch.autograd.grad(o_l, ql, do, retain_graph=True),
          48 + 16 + 48, f_fwd + f_bwd, 16 * slots, be),
     ):
         rows_out[name] = kernel_row(name, ATTN_SOURCE, ATTN_REPLACES, err, kern, plain,
-                                    lib_fn if lib_ok else None, nfloats * 4 * pos,
-                                    flops * pos, hbm, heavy=True, exps=exps * pos)
+                                    lib_fn if lib_ok else None,
+                                    nfloats * qkv.element_size() * pos,
+                                    flops * pos, hbm, heavy=True, exps=exps * pos, cold=bf16)
     del o_g, o_l, qg, ql
     torch.cuda.empty_cache()
 
@@ -656,20 +775,25 @@ def check_fused_against_unfused(gen) -> None:
 
 
 def check_dot_scores(n, hbm, gen, rows_out, batch=BATCH, suffix="",
-                     kinds=("fwd", "bwd")) -> None:
+                     kinds=("fwd", "bwd"), dtype="float32") -> None:
     """The dot-product kernels at batch rows against the plain version, on the
     operands as the DotProduct node holds them: the projected dense row
     x [B, 16] and the projected slots yt [B, 16, n - 1]; equal bits from two
-    runs; the times of the rows in `kinds`, named with `suffix`."""
+    runs; the times of the rows in `kinds`, named with `suffix`.  dtype
+    "bfloat16": every operand and result in bf16, rows named "_bf16"."""
     import torch
 
     from nasrec_tpu_torch.ops.kernels import dotprod
 
     dev = torch.device(DEVICE)
+    dt = dtype_of(dtype)
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        suffix += "_bf16"
     P = dotprod.tril_size(n)
-    x = torch.randn(batch, 16, device=dev, generator=gen)
-    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen)
-    dz = torch.randn(batch, P, device=dev, generator=gen)
+    x = torch.randn(batch, 16, device=dev, generator=gen).to(dt)
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen).to(dt)
+    dz = torch.randn(batch, P, device=dev, generator=gen).to(dt)
     idx = dotprod._tril_flat_index(n, dev)
     idx_t = (idx % n) * n + idx // n
 
@@ -686,15 +810,18 @@ def check_dot_scores(n, hbm, gen, rows_out, batch=BATCH, suffix="",
     fe, fr, fs = max_err(z_k, z_g.detach())
     xe, xr, xs = max_err(dx_k, dx_p)
     ye, yr, ys = max_err(dy_k, dy_p)
-    ok = (same_bits and fe <= KERNEL_REL_TOL * max(fs, 1.0)
-          and xe <= KERNEL_REL_TOL * max(xs, 1.0) and ye <= KERNEL_REL_TOL * max(ys, 1.0))
-    emit({"phase": "kernels", "kernel": "dot_scores_tril", "n": n, "batch": batch,
-          "z_max_abs_err": fe, "z_max_rel_err": fr, "dx_max_abs_err": xe,
+    pairs = ((z_k, z_g.detach()), (dx_k, dx_p), (dy_k, dy_p))
+    ok = same_bits and all(agree(got, want, KERNEL_REL_TOL)[1] for got, want in pairs)
+    ulps = [within_ulp(got, want)[1] for got, want in pairs] if bf16 else None
+    emit({"phase": "kernels", "kernel": "dot_scores_tril", "dtype": dtype, "n": n,
+          "batch": batch, "z_max_abs_err": fe, "z_max_rel_err": fr, "dx_max_abs_err": xe,
           "dx_max_rel_err": xr, "dyt_max_abs_err": ye, "dyt_max_rel_err": yr,
+          "max_ulps_z_dx_dyt": ulps,
           "equal_bits_twice": same_bits, "fwd_launch": list(dotprod.fwd_config(n)),
           "bwd_launch": list(dotprod.bwd_config(n)), "ok": ok})
     if not ok:
-        raise SystemExit(f"dot_scores_tril n={n} batch={batch} disagrees with its plain version")
+        raise SystemExit(f"dot_scores_tril n={n} batch={batch} ({dtype}) disagrees with its "
+                         "plain version")
 
     # The library calls work on t [B, n, 16], which only they need.
     t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1).contiguous()
@@ -703,12 +830,12 @@ def check_dot_scores(n, hbm, gen, rows_out, batch=BATCH, suffix="",
         return torch.bmm(t, t.transpose(1, 2)).reshape(batch, n * n)[:, idx]
 
     def lib_bwd():
-        full = torch.zeros(batch, n * n, device=dev)
+        full = torch.zeros(batch, n * n, device=dev, dtype=dt)
         full[:, idx] = dz
         full[:, idx_t] = dz
         return torch.bmm(full.reshape(batch, n, n), t)
 
-    t_bytes, z_bytes = batch * n * 16 * 4, batch * P * 4
+    t_bytes, z_bytes = batch * n * 16 * x.element_size(), batch * P * x.element_size()
     for kind, kern, plain, lib, nbytes, flops, err in (
         ("fwd",
          lambda: dotprod.dot_scores_tril_fwd_kernel(x, yt),
@@ -816,6 +943,13 @@ def phase_kernels(hbm):
     check_fused_against_unfused(gen)
     for n in (46, 17, 40, 9):
         check_dot_scores(n, hbm, gen, rows_out)
+    # bf16 compute (phase 3d's shapes): the body and the attention core at
+    # S = 64 and 48, the dot-product at n = 40, 9 (xlarge) and 46, 17 (autoctr).
+    for slots in BODY_SLOTS:
+        check_transformer_body(slots, hbm, gen, rows_out, dtype="bfloat16")
+        check_attention(slots, hbm, gen, rows_out, dtype="bfloat16")
+    for n in (40, 9, 46, 17):
+        check_dot_scores(n, hbm, gen, rows_out, dtype="bfloat16")
     spec = DATASETS["criteo-kaggle"]
     check_table_update(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
 
@@ -1005,6 +1139,167 @@ def phase_main(space, rows_out):
 
     profile_steps(f"criteo-kaggle/{space}", more_k, 3)
     del model_k, batches, more_k
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def lockstep(step_k, state_k, step_p, state_p, batches, masks=None) -> dict:
+    """Each batch through the kernel path's step (timed, its launches counted)
+    and through the plain path's step from the kernel path's state before it,
+    so that every comparison is of one step from one state (the bf16
+    tolerances above).  Returns the losses, the kernel steps' seconds and
+    launches, the plain steps' launches, the kernel steps' peak device memory
+    (each read from a reset before it, so the comparison's temporaries do not
+    count), and the largest differences: loss
+    and logits relative to the loss and to the largest logit, parameters
+    absolute, optimizer slots relative to the slot's largest element (or 1):
+    an Adagrad accumulator sums squared gradients and reaches the hundreds."""
+    import torch
+
+    from nasrec_tpu_torch.train.optim import copy_state_, slot_dicts
+
+    out = {"losses": [], "losses_plain": [], "seconds": [], "launches": [],
+           "plain_launches": [], "loss_rel": 0.0, "logit_rel": 0.0, "param": 0.0, "slot": 0.0,
+           "peak_gb": 0.0}
+    for i, batch in enumerate(batches):
+        extra = () if masks is None else (masks[i],)
+        state_p.model.load_state_dict(state_k.model.state_dict())
+        copy_state_(state_p.opt_state, state_k.opt_state)
+        state_p.step = state_k.step
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = time.perf_counter()
+        state_k, mk = step_k(state_k, *batch, *extra)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - s0)
+        out["peak_gb"] = max(out["peak_gb"], torch.cuda.max_memory_allocated() / 1e9)
+        out["launches"].append(read_launches())
+        reset_launches()
+        state_p, mp = step_p(state_p, *batch, *extra)
+        out["plain_launches"].append(read_launches())
+        lk, lp = float(mk["loss"]), float(mp["loss"])
+        out["losses"].append(lk)
+        out["losses_plain"].append(lp)
+        out["loss_rel"] = max(out["loss_rel"], abs(lk - lp) / max(abs(lp), 1e-30))
+        scale = max(mp["logits"].abs().max().item(), 1.0)
+        out["logit_rel"] = max(out["logit_rel"],
+                               (mk["logits"] - mp["logits"]).abs().max().item() / scale)
+        out["param"] = max(out["param"], state_diff(state_k.model, state_p.model))
+        out["slot"] = max([out["slot"]] + [
+            (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1.0)
+            for a, b in zip(slot_dicts(state_k.opt_state), slot_dicts(state_p.opt_state))
+            for k in a])
+    out["logits"] = mk["logits"]
+    return out
+
+
+def lockstep_ok(res) -> bool:
+    return (all(math.isfinite(x) for x in res["losses"] + res["losses_plain"])
+            and res["loss_rel"] <= BF16_LOSS_TOL and res["logit_rel"] <= BF16_LOGIT_TOL
+            and res["param"] <= PARAM_TOL and res["slot"] <= BF16_SLOT_TOL
+            and not any(res["plain_launches"]))
+
+
+def phase_amp(space, rows_out, f32_step_ms: float) -> float:
+    """Phase 3d: phase 3's main path with compute_dtype bfloat16 (the AMP leg):
+    AMP_STEPS sparse steps at full vocab and batch 32768 through the kernels,
+    counted a step (the body and dot-product kernels in bf16, the table update
+    in f32), each against the plain versions from the same state, and an eval
+    forward of each; for xlarge 2 more steps with the transformer nodes
+    unfused (the attention kernel in bf16); a profile line.  Returns the
+    step's ms."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
+    from nasrec_tpu_torch.configs import get_best_arch
+    from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
+    from nasrec_tpu_torch.ops.attention import Transformer
+    from nasrec_tpu_torch.train.loop import make_eval_step
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    dev, bf = torch.device(DEVICE), torch.bfloat16
+    steps = AMP_STEPS[space]
+    spec = DATASETS["criteo-kaggle"]
+    vocab = spec.vocab_sizes(VOCAB_CAP)
+    plan = build_fixed_plan(get_best_arch("criteo-kaggle", space), OPS_CONFIG_LIB[space], 7,
+                            spec.num_dense, spec.num_sparse, vocab)
+    model_k = fixed_init(plan, seed=0, device=dev)
+    model_p = copy.deepcopy(model_k)
+    model_u = copy.deepcopy(model_k) if space == "xlarge" else None
+    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab)
+    sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
+
+    def make(impl):
+        return make_sparse_embedding_train_step(sched, grad_clip=5.0, impl=impl,
+                                                compute_dtype=bf)
+
+    step_k, state_k = make("auto"), init_sparse_train_state(model_k)
+    state_p = init_sparse_train_state(model_p)
+    res = lockstep(step_k, state_k, make("plain"), state_p, batches)
+    peak_gb = res["peak_gb"]
+    reset_launches()
+    eval_k = make_eval_step("auto", compute_dtype=bf)(model_k, *batches[0][:2])
+    eval_launches = read_launches()
+    model_p.load_state_dict(model_k.state_dict())
+    eval_p = make_eval_step("plain", compute_dtype=bf)(model_p, *batches[0][:2])
+    eval_rel = (eval_k - eval_p).abs().max().item() / max(eval_p.abs().max().item(), 1.0)
+    del model_p, state_p
+    step_ms = float(np.median(res["seconds"][1:])) * 1e3
+    per_step = bf16_named({k: 1 for k in TRAIN_STEP_KERNELS[space]})
+    ok = (lockstep_ok(res) and eval_k.dtype == res["logits"].dtype == torch.float32
+          and tuple(eval_k.shape) == (BATCH, 1) and bool(torch.isfinite(eval_k).all())
+          and eval_rel <= BF16_LOGIT_TOL
+          and all(p.dtype == torch.float32 for p in model_k.parameters())
+          and all(c == per_step for c in res["launches"])
+          and eval_launches == bf16_named({k: 1 for k in EVAL_KERNELS[space]}))
+    emit({"phase": "amp", "arch": f"criteo-kaggle/{space}", "compute_dtype": "bfloat16",
+          "vocab_rows": int(sum(vocab)), "batch": BATCH, "steps": steps,
+          "losses": res["losses"], "losses_plain_from_the_same_state": res["losses_plain"],
+          "max_loss_rel_diff": res["loss_rel"], "max_logit_rel_diff": res["logit_rel"],
+          "max_param_diff": res["param"], "max_accumulator_rel_diff": res["slot"],
+          "max_eval_logit_rel_diff": eval_rel,
+          "step_ms": step_ms, "examples_per_s": BATCH / step_ms * 1e3,
+          "step_ms_all": [x * 1e3 for x in res["seconds"]], "f32_step_ms_phase3": f32_step_ms,
+          "over_f32_step": step_ms / f32_step_ms, "peak_mem_gb": peak_gb,
+          "launches_per_step": res["launches"][0], "eval_launches": eval_launches, "ok": ok})
+    if not ok:
+        raise SystemExit(f"bf16 main path criteo-kaggle/{space} failed (see the 'amp' line)")
+    for name, count in [*((k, v * steps) for k, v in res["launches"][0].items()),
+                        *eval_launches.items()]:
+        rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+
+    if model_u is not None:
+        # The first steps again with every transformer node unfused: op by op
+        # in bf16 around the attention kernel, from the same initial weights.
+        for node in model_u.modules():
+            if isinstance(node, Transformer):
+                node.fused = False
+        state_u = init_sparse_train_state(model_u)
+        reset_launches()
+        losses_u, times_u, _ = run_steps(make("auto"), state_u, batches[:AMP_UNFUSED_STEPS])
+        unfused = read_launches()
+        diff_u = max(abs(a - b) / abs(b) for a, b in zip(losses_u, res["losses"]))
+        ok = (diff_u <= AMP_UNFUSED_LOSS_TOL
+              and unfused == bf16_named({k: AMP_UNFUSED_STEPS for k in UNFUSED_STEP_KERNELS}))
+        emit({"phase": "amp", "arch": f"criteo-kaggle/{space}", "form": "unfused",
+              "steps": AMP_UNFUSED_STEPS, "losses": losses_u,
+              "max_loss_rel_diff_vs_fused": diff_u,
+              "step_ms_all": [x * 1e3 for x in times_u], "launches": unfused, "ok": ok})
+        if not ok:
+            raise SystemExit("bf16 main path with unfused transformer nodes failed")
+        for name, count in unfused.items():
+            if name.startswith("tiny_head_attention"):
+                rows_out[name]["launches"] = count
+        del model_u, state_u
+
+    profile_steps(f"criteo-kaggle/{space} bf16", lambda: step_k(state_k, *batches[0]), 3)
+    del model_k, state_k, batches
     torch.cuda.empty_cache()
     return step_ms
 
@@ -1457,11 +1752,13 @@ def suffixed(launches: dict, train: bool) -> dict:
     return {k + tail: v for k, v in launches.items()}
 
 
-def phase_supernet(rows_out):
+def phase_supernet(rows_out, compute_dtype="float32"):
     """Supernet one-shot training at the canonical configuration: SN_STEPS
     masked train steps and one eval forward through the kernels, counted step
     by step, then the same steps from the same weights and masks through the
-    plain versions, and a profile of 3 more kernel-path steps."""
+    plain versions, and a profile of 3 more kernel-path steps.  compute_dtype
+    "bfloat16": the same steps in bf16, each plain step from the kernel path's
+    state before it (`lockstep`), and no profile."""
     import numpy as np
     import torch
 
@@ -1523,8 +1820,49 @@ def phase_supernet(rows_out):
             losses.append(float(out["loss"]))
         return losses, times, per_step, out["logits"], lambda: step(state, *batches[0], masks[0])
 
-    def evaluate(model, impl):
-        return make_eval_step(impl, has_masks=True)(model, eval_dense, eval_cat, eval_masks)
+    def evaluate(model, impl, dt=torch.float32):
+        return make_eval_step(impl, has_masks=True, compute_dtype=dt)(
+            model, eval_dense, eval_cat, eval_masks)
+
+    if compute_dtype == "bfloat16":
+        bf = torch.bfloat16
+
+        def make(impl):
+            return make_sparse_embedding_train_step(sched, grad_clip=5.0, impl=impl,
+                                                    has_masks=True, compute_dtype=bf)
+
+        res = lockstep(make("auto"), init_sparse_train_state(model_k), make("plain"),
+                       init_sparse_train_state(model_p), batches, masks)
+        peak_gb = res["peak_gb"]
+        reset_launches()
+        eval_k = evaluate(model_k, "auto", bf)
+        eval_launches = read_launches()
+        model_p.load_state_dict(model_k.state_dict())
+        eval_p = evaluate(model_p, "plain", bf)
+        eval_rel = (eval_k - eval_p).abs().max().item() / max(eval_p.abs().max().item(), 1.0)
+        step_ms = float(np.median(res["seconds"][1:])) * 1e3
+        ok = (bool(full_steps and tf_off and dp_off) and lockstep_ok(res)
+              and eval_k.dtype == torch.float32 and bool(torch.isfinite(eval_k).all())
+              and eval_rel <= BF16_LOGIT_TOL
+              and all(c == bf16_named(SN_STEP_LAUNCHES) for c in res["launches"])
+              and eval_launches == bf16_named(SN_EVAL_LAUNCHES))
+        emit({"phase": "supernet", "config": "criteo-kaggle xlarge supernet",
+              "compute_dtype": "bfloat16", "blocks": SN_BLOCKS, "vocab_rows": int(sum(vocab)),
+              "batch": SN_BATCH, "steps": SN_STEPS, "full_path_steps": full_steps,
+              "steps_with_a_transformer_gate_0": tf_off,
+              "steps_with_a_dot_product_gate_0": dp_off, "losses": res["losses"],
+              "losses_plain_from_the_same_state": res["losses_plain"],
+              "max_loss_rel_diff": res["loss_rel"], "max_logit_rel_diff": res["logit_rel"],
+              "max_param_diff": res["param"], "max_accumulator_rel_diff": res["slot"],
+              "max_eval_logit_rel_diff": eval_rel, "step_ms": step_ms,
+              "step_ms_all": [x * 1e3 for x in res["seconds"]], "peak_mem_gb": peak_gb,
+              "launches_per_step": res["launches"][0], "eval_launches": eval_launches,
+              "ok": ok})
+        if not ok:
+            raise SystemExit("the bf16 supernet drive failed (see the 'supernet' line)")
+        del model_k, model_p, batches, buffer, masks
+        torch.cuda.empty_cache()
+        return
 
     torch.cuda.reset_peak_memory_stats()
     losses_k, times_k, per_step, logits_k, more_k = run(model_k, "auto")
@@ -2008,37 +2346,82 @@ def profile_steps(arch: str, step_fn, steps: int) -> dict:
     return line
 
 
-def phase_cli(space):
+def phase_cli(space, compute_dtype="float32"):
     """The CLI on synthetic data with a planted signal: 40 steps must lower
     the test loss and lift the test AUROC above chance.  (At the default
     lr 0.16 a run this short has a warmup of 0 steps and diverges, in the
-    JAX package as here, so the phase trains at lr 0.02.)"""
+    JAX package as here, so the phase trains at lr 0.02.)  compute_dtype
+    "bfloat16" passes --compute_dtype bfloat16: the body and dot-product
+    kernels launch in bf16, the table update in f32."""
+    import torch
+
     from nasrec_tpu_torch.cli import main_train
 
     reset_launches()
     t0 = time.perf_counter()
     out = main_train.main([
         "--arch", f"criteo-kaggle/{space}", "--data_source", "synthetic",
-        "--device", "cuda", "--max_train_steps", str(CLI_STEPS), "--max_eval_steps", "1",
+        "--device", DEVICE, "--max_train_steps", str(CLI_STEPS), "--max_eval_steps", "1",
         "--train_batch_size", "2048", "--test_batch_size", "8192",
         "--learning_rate", "0.02", "--display_interval", "10", "--test_interval", "20",
+        "--compute_dtype", compute_dtype,
     ])
     seconds = time.perf_counter() - t0
     launches = read_launches()
     logs = out["logs"][0]
     first, last = logs["test_loss"][0], logs["test_loss"][-1]
+    train_k, eval_k = TRAIN_STEP_KERNELS[space], EVAL_KERNELS[space]
+    if compute_dtype == "bfloat16":
+        train_k, eval_k = bf16_named(train_k), bf16_named(eval_k)
     # Each train step launches every kernel of a train step once; the eval
     # forwards, under no_grad, launch the forward kernels.
     ok = (all(math.isfinite(x) for x in logs["train_loss"]) and math.isfinite(last)
           and last < first and logs["test_AUROC"][-1] > 0.6
-          and set(launches) == TRAIN_STEP_KERNELS[space] | EVAL_KERNELS[space]
-          and all(launches[k] >= CLI_STEPS for k in TRAIN_STEP_KERNELS[space])
-          and all(launches[k] >= 1 for k in EVAL_KERNELS[space]))
-    emit({"phase": "cli", "arch": f"criteo-kaggle/{space}", "train_loss": logs["train_loss"],
-          "test_loss": logs["test_loss"], "test_auroc": logs["test_AUROC"],
-          "launches": launches, "seconds": seconds, "ok": ok})
+          and set(launches) == train_k | eval_k
+          and all(launches[k] >= CLI_STEPS for k in train_k)
+          and all(launches[k] >= 1 for k in eval_k)
+          and all(p.dtype == torch.float32 for p in out["state"].model.parameters()))
+    emit({"phase": "cli", "arch": f"criteo-kaggle/{space}", "compute_dtype": compute_dtype,
+          "train_loss": logs["train_loss"], "test_loss": logs["test_loss"],
+          "test_auroc": logs["test_AUROC"], "launches": launches, "seconds": seconds, "ok": ok})
     if not ok:
-        raise SystemExit(f"CLI entry point did not learn the synthetic signal ({space})")
+        raise SystemExit(f"CLI entry point did not learn the synthetic signal ({space}, "
+                         f"{compute_dtype})")
+
+
+def phase_supernet_cli_bf16(tmp: Path) -> None:
+    """nasrec_tpu_torch.cli.train_supernet --compute_dtype bfloat16 at 7
+    blocks and batch 512 for SN_BF16_CLI_STEPS steps: finite losses, every
+    step's kernels launched in bf16 (the table update in f32), and the flag
+    in configs_args.json."""
+    from nasrec_tpu_torch.cli import train_supernet
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train_supernet.main([
+        "--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
+        "--num_blocks", str(SN_BLOCKS), "--use_layernorm", "1",
+        "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_EVAL_BATCH),
+        "--max_eval_steps", "1", "--display_interval", "1",
+        "--supernet_training_steps", str(SN_WARMUP), "--learning_rate", "0.02",
+        "--compute_dtype", "bfloat16", "--max_train_steps", str(SN_BF16_CLI_STEPS),
+        "--test_interval", str(SN_BF16_CLI_STEPS), "--logging_dir", str(tmp / "bf16")])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    logs = out["logs"][0]
+    expected = bf16_named({k: v * SN_BF16_CLI_STEPS for k, v in SN_STEP_LAUNCHES.items()})
+    for k, v in bf16_named(SN_EVAL_LAUNCHES).items():
+        expected[k] = expected.get(k, 0) + v * len(logs["test_loss"])
+    with open(tmp / "bf16" / "configs_args.json") as f:
+        flag = json.load(f)["train"]["compute_dtype"]
+    ok = (all(math.isfinite(x) for x in logs["train_loss"] + logs["test_loss"])
+          and out["state"].step == SN_BF16_CLI_STEPS and launches == expected
+          and flag == "bfloat16")
+    emit({"phase": "supernet_cli", "compute_dtype": flag, "train_loss": logs["train_loss"],
+          "test_loss": logs["test_loss"], "steps": out["state"].step, "launches": launches,
+          "seconds": seconds, "ok": ok})
+    if not ok:
+        raise SystemExit("the supernet CLI did not train in bf16")
 
 
 def main() -> int:
@@ -2061,15 +2444,20 @@ def main() -> int:
     smi = phase_device(build)
     rows_out = phase_kernels(hbm_bytes_per_s(smi))
     step_ms = {space: phase_main(space, rows_out) for space in ("xlarge", "autoctr")}
+    for space in ("xlarge", "autoctr"):
+        phase_amp(space, rows_out, step_ms[space])
     tmp = Path(tempfile.mkdtemp(prefix="nasrec_smoke_"))
     try:
         phase_data(rows_out, tmp, step_ms["xlarge"])
         phase_dense(rows_out, step_ms["xlarge"])
         phase_micro(rows_out)
         phase_supernet(rows_out)
+        phase_supernet(rows_out, "bfloat16")
         for space in ("autoctr", "xlarge"):
             phase_cli(space)
+        phase_cli("xlarge", "bfloat16")
         ckpt = phase_supernet_cli(tmp)
+        phase_supernet_cli_bf16(tmp)
         phase_search(rows_out)
         phase_search_rank()
         phase_search_cli(ckpt, tmp)

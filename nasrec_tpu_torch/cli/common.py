@@ -57,7 +57,9 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
     p.add_argument("--logging_dir", default=None)
     p.add_argument("--mesh_model", type=int, default=0,
                    help="not yet ported: the (data, model) mesh branch")
-    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16: the model's activations in bf16 (the JAX package's "
+                        "rule); parameters, table, optimizer state and logits stay float32")
     p.add_argument("--place_embedding_on_cpu", type=int, default=0,
                    help="not yet ported: the host-offload branch")
     p.add_argument("--micro_batches", type=int, default=1,

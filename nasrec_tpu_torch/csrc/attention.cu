@@ -15,6 +15,11 @@
 // (batch row, slot) position, a block per tile of whole batch rows, the row's
 // keys and values in shared memory; the arithmetic, folded to two FFMA and one
 // ex2 a probability, is in tiny_attn.cuh.
+//
+// qkv, o, do and dqkv are f32 or bf16 (the JAX kernel emits its input's dtype
+// and computes in f32): the kernels are templates on that element type, with
+// f32 inside; a bf16 position is 96 bytes of qkv and 32 of o, so its loads and
+// stores stay 16 bytes wide.  Each entry point has a bf16 twin.
 
 #include "tiny_attn.cuh"
 
@@ -28,8 +33,9 @@ constexpr int kRec = kMaxThreads * kLd;  // floats of one record array
 constexpr size_t kFwdSmem = 2 * kRec * sizeof(float);
 constexpr size_t kBwdSmem = 5 * kRec * sizeof(float);
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
+attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
                 long long batch, int S, int rpt) {
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;
@@ -44,7 +50,7 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
     const long long pos = b0 * S + t;
     float qs[kE];
     if (active) {
-      const float* src = qkv + pos * (3 * kE);
+      const T* src = qkv + pos * (3 * kE);
       float tmp[kE];
       load16(src, qs);
 #pragma unroll
@@ -64,9 +70,10 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                float* __restrict__ dqkv, long long batch, int S, int rpt) {
+attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                T* __restrict__ dqkv, long long batch, int S, int rpt) {
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
   float* sk = smem + kRec;
@@ -84,7 +91,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
     const long long pos = b0 * S + t;
     float qs[kE], dov[kE];
     if (active) {
-      const float* src = qkv + pos * (3 * kE);
+      const T* src = qkv + pos * (3 * kE);
       float tmp[kE];
       load16(src, qs);
 #pragma unroll
@@ -107,7 +114,7 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
     }
     __syncthreads();
     if (active) {
-      float* dst = dqkv + pos * (3 * kE);
+      T* dst = dqkv + pos * (3 * kE);
       float dq[kE];
       attn_bwd_dq(qs, dov, rec, sk + row0, sv + row0, S, dq);
       store16(dst, dq);
@@ -127,27 +134,50 @@ int grid_for(long long batch, int rpt) {
   return static_cast<int>(tiles < kMaxBlocks ? tiles : kMaxBlocks);
 }
 
+template <typename T>
+int attn_fwd(const T* qkv, T* o, long long batch, int S, int rpt, int threads, void* stream) {
+  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  attn_fwd_kernel<T><<<grid_for(batch, rpt), threads, kFwdSmem,
+                       static_cast<cudaStream_t>(stream)>>>(qkv, o, batch, S, rpt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int attn_bwd(const T* qkv, const T* dout, T* dqkv, long long batch, int S, int rpt,
+             int threads, void* stream) {
+  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBwdSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  attn_bwd_kernel<T><<<grid_for(batch, rpt), threads, kBwdSmem,
+                       static_cast<cudaStream_t>(stream)>>>(qkv, dout, dqkv, batch, S, rpt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int nasrec_attn_fwd(const float* qkv, float* o, long long batch, int S,
                                int rpt, int threads, void* stream) {
-  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  attn_fwd_kernel<<<grid_for(batch, rpt), threads, kFwdSmem,
-                    static_cast<cudaStream_t>(stream)>>>(qkv, o, batch, S, rpt);
-  return static_cast<int>(cudaGetLastError());
+  return attn_fwd(qkv, o, batch, S, rpt, threads, stream);
+}
+
+extern "C" int nasrec_attn_fwd_bf16(const __nv_bfloat16* qkv, __nv_bfloat16* o,
+                                    long long batch, int S, int rpt, int threads,
+                                    void* stream) {
+  return attn_fwd(qkv, o, batch, S, rpt, threads, stream);
 }
 
 extern "C" int nasrec_attn_bwd(const float* qkv, const float* dout, float* dqkv,
                                long long batch, int S, int rpt, int threads,
                                void* stream) {
-  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBwdSmem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  attn_bwd_kernel<<<grid_for(batch, rpt), threads, kBwdSmem,
-                    static_cast<cudaStream_t>(stream)>>>(qkv, dout, dqkv, batch, S, rpt);
-  return static_cast<int>(cudaGetLastError());
+  return attn_bwd(qkv, dout, dqkv, batch, S, rpt, threads, stream);
+}
+
+extern "C" int nasrec_attn_bwd_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* dout,
+                                    __nv_bfloat16* dqkv, long long batch, int S, int rpt,
+                                    int threads, void* stream) {
+  return attn_bwd(qkv, dout, dqkv, batch, S, rpt, threads, stream);
 }

@@ -49,11 +49,23 @@
 //             are staged in shared memory at the same offset from a 16-byte
 //             boundary as their destination and stored 16 bytes a thread.
 //
+// bf16 (the JAX kernel emits its input's dtype and sums in f32): the same
+// kernels take x, yt and dz in bf16 and write z, dx and dyt in bf16, each
+// element rounded once from the f32 sum.  Shared memory holds the same f32
+// tiles; a bf16 operand is converted as it is staged, by 16-byte loads of 8
+// values (a batch row of x is 32 bytes and of yt 32 m bytes, so every tile
+// starts on a 16-byte boundary) into registers and plain shared stores, and
+// dz row tiles, whose start falls on any 2-byte boundary, by scalar loads to
+// the first 16-byte boundary and 16-byte loads after it.  Those loads do not
+// overlap the computation as cp.async does in f32: the simple form, left to
+// a later change.  Outputs leave as in f32, 8 values a 16-byte store.
+//
 // The sums run in a fixed order, so equal inputs give equal bits.  What holds
 // the kernels now (tools/dotprod_split.py): the shared-memory loads of the
 // loops, the 4-byte cp.async, the staged writes and the 16-byte stores all go
 // through the multiprocessor's one load-store pipe, and their times add up.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,9 +96,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Floats between p and the 16-byte boundary below it.
-__device__ __forceinline__ int phase16(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+using bf16 = __nv_bfloat16;
+
+// Elements of a 16-byte piece.
+template <typename T>
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// Elements between p and the 16-byte boundary below it.
+template <typename T>
+__device__ __forceinline__ int phase16(const T* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) / sizeof(T)) & (vec_elems<T>() - 1));
+}
+
+// 8 bf16 values of one 16-byte load, as floats.
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// 8 floats as bf16 (each rounded to nearest even), packed for one 16-byte store.
+__device__ __forceinline__ uint4 pack8(const float4& a, const float4& b) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  h[0] = __floats2bfloat162_rn(a.x, a.y);
+  h[1] = __floats2bfloat162_rn(a.z, a.w);
+  h[2] = __floats2bfloat162_rn(b.x, b.y);
+  h[3] = __floats2bfloat162_rn(b.z, b.w);
+  return raw;
 }
 
 // Four floats from a 16-byte boundary of shared memory, in one load.
@@ -113,11 +156,41 @@ __device__ __forceinline__ void stage_operand(float* st, const float* __restrict
     cp_async4(st + (idx >> 4) * rs + (idx & (kE - 1)) * ld, x + idx);
 }
 
+// The same from bf16, converted: 8 values a thread from one 16-byte load
+// (x and yt tiles start on 16-byte boundaries and hold a multiple of 16
+// values), written to shared memory before this returns.
+__device__ __forceinline__ void stage_operand(float* st, const bf16* __restrict__ x,
+                                              const bf16* __restrict__ yt, int rows, int m,
+                                              int ld, int rs, unsigned magic) {
+  const int nvec = rows * kE * m / 8;
+  const uint4* yv = reinterpret_cast<const uint4*>(yt);
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    float val[8];
+    unpack8(yv[v], val);
+    const int idx = 8 * v;
+    int q = magic ? static_cast<int>(__umulhi(static_cast<unsigned>(idx), magic)) : idx;
+    int k = idx - q * m;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      st[(q >> 4) * rs + (q & (kE - 1)) * ld + 1 + k] = val[i];
+      if (++k == m) k = 0, ++q;
+    }
+  }
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  for (int v = threadIdx.x; v < rows * kE / 8; v += blockDim.x) {
+    float val[8];
+    unpack8(xv[v], val);
+    float* dst = st + (v >> 1) * rs + 8 * (v & 1) * ld;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i * ld] = val[i];
+  }
+}
+
 // `count` contiguous floats, asynchronously; dst and src lie at the same
 // offset from a 16-byte boundary, so all but a head and a tail of at most 3
 // floats each go in 16-byte pieces.
-__device__ __forceinline__ void stage_floats(float* dst, const float* __restrict__ src,
-                                             int count) {
+__device__ __forceinline__ void stage_elems(float* dst, const float* __restrict__ src,
+                                            int count) {
   const int head = min(count, (4 - phase16(src)) & 3);
   const int nvec = (count - head) >> 2;
   for (int k = threadIdx.x; k < nvec; k += blockDim.x)
@@ -129,9 +202,32 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* __restrict
   }
 }
 
+// `count` contiguous bf16 values as floats, written before this returns.  dst
+// lies phase16(src) floats past a 16-byte boundary of shared memory, so the
+// values after src's head of at most 7 go 8 at a time: one 16-byte load, two
+// 16-byte shared stores.
+__device__ __forceinline__ void stage_elems(float* dst, const bf16* __restrict__ src,
+                                            int count) {
+  const int head = min(count, (vec_elems<bf16>() - phase16(src)) & (vec_elems<bf16>() - 1));
+  const int nvec = (count - head) >> 3;
+  const uint4* sv = reinterpret_cast<const uint4*>(src + head);
+  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
+    float val[8];
+    unpack8(sv[k], val);
+    float4* d = reinterpret_cast<float4*>(dst + head + 8 * k);
+    d[0] = make_float4(val[0], val[1], val[2], val[3]);
+    d[1] = make_float4(val[4], val[5], val[6], val[7]);
+  }
+  const int rest = count - 8 * nvec;
+  for (int k = threadIdx.x; k < rest; k += blockDim.x) {
+    const int idx = k < head ? k : 8 * nvec + k;
+    dst[idx] = __bfloat162float(src[idx]);
+  }
+}
+
 // The same from shared memory to device memory, 16 bytes a thread.
-__device__ __forceinline__ void store_floats(float* __restrict__ dst, const float* src,
-                                             int count) {
+__device__ __forceinline__ void store_elems(float* __restrict__ dst, const float* src,
+                                            int count) {
   const int head = min(count, (4 - phase16(dst)) & 3);
   const int nvec = (count - head) >> 2;
   float4* dv = reinterpret_cast<float4*>(dst + head);
@@ -141,6 +237,22 @@ __device__ __forceinline__ void store_floats(float* __restrict__ dst, const floa
   for (int k = threadIdx.x; k < rest; k += blockDim.x) {
     const int idx = k < head ? k : 4 * nvec + k;
     dst[idx] = src[idx];
+  }
+}
+
+// Staged floats to bf16, each rounded once; src lies phase16(dst) floats past a
+// 16-byte boundary, so 8 values go as two 16-byte loads and one 16-byte store.
+__device__ __forceinline__ void store_elems(bf16* __restrict__ dst, const float* src,
+                                            int count) {
+  const int head = min(count, (vec_elems<bf16>() - phase16(dst)) & (vec_elems<bf16>() - 1));
+  const int nvec = (count - head) >> 3;
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  const float4* sv = reinterpret_cast<const float4*>(src + head);
+  for (int k = threadIdx.x; k < nvec; k += blockDim.x) dv[k] = pack8(sv[2 * k], sv[2 * k + 1]);
+  const int rest = count - 8 * nvec;
+  for (int k = threadIdx.x; k < rest; k += blockDim.x) {
+    const int idx = k < head ? k : 8 * nvec + k;
+    dst[idx] = __float2bfloat16(src[idx]);
   }
 }
 
@@ -154,9 +266,13 @@ struct Shape {
 };
 
 // Shared memory, in floats (each a multiple of 4, so every buffer starts on a
-// 16-byte boundary).  kPad: what a masked lane may read past its tile.
+// 16-byte boundary).  kPad: what a masked lane may read past its tile.  A
+// staged array of T starts up to vec_elems<T>() - 1 floats into its buffer.
 __host__ __device__ inline int operand_floats(int tb, int rs) { return tb * rs + kPad; }
-__host__ __device__ inline int staged_floats(int count) { return round_up(count + 3, 4) + kPad; }
+template <typename T>
+__host__ __device__ inline int staged_floats(int count) {
+  return round_up(count + vec_elems<T>() - 1, 4) + kPad;
+}
 
 // First batch row and row count of tile `tile`.
 struct Tile {
@@ -168,14 +284,15 @@ __device__ __forceinline__ Tile tile_at(long long tile, const Shape& s) {
   return Tile{b0, static_cast<int>(min(static_cast<long long>(s.tb), s.batch - b0))};
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-dot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ yt, float* __restrict__ z,
+dot_fwd_kernel(const T* __restrict__ x, const T* __restrict__ yt, T* __restrict__ z,
                const int* __restrict__ tiles, int ntiles, Shape s) {
   extern __shared__ __align__(16) float smem[];
   const int n = s.n, m = n - 1, P = n * (n - 1) / 2, tb = s.tb, ld = s.ld, rs = s.rs;
   float* st[2] = {smem, smem + operand_floats(tb, rs)};
   float* sz = st[1] + operand_floats(tb, rs);
-  int* stile = reinterpret_cast<int*>(sz + staged_floats(tb * P));
+  int* stile = reinterpret_cast<int*>(sz + staged_floats<T>(tb * P));
   for (int k = threadIdx.x; k < 2 * ntiles; k += blockDim.x) stile[k] = tiles[k];
 
   const long long ntile_b = (s.batch + tb - 1) / tb;
@@ -196,7 +313,7 @@ dot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ yt, float*
     cp_async_wait<1>();  // this tile has arrived; the next may still be in flight
     __syncthreads();
 
-    float* zdst = z + t.b0 * P;
+    T* zdst = z + t.b0 * P;
     float* zs = sz + phase16(zdst);
     const int ntask = t.rows * ntiles;
     for (int task = threadIdx.x; task < ntask; task += blockDim.x) {
@@ -241,7 +358,7 @@ dot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ yt, float*
       }
     }
     __syncthreads();
-    store_floats(zdst, zs, t.rows * P);
+    store_elems(zdst, zs, t.rows * P);
   }
   cp_async_wait<0>();
 }
@@ -252,26 +369,26 @@ __device__ __forceinline__ void add_row(float (&acc)[TE], float d, const float (
   for (int y = 0; y < TE; ++y) acc[y] = fmaf(d, t[y], acc[y]);
 }
 
-template <int TE>
+template <typename T, int TE>
 __global__ void __launch_bounds__(kMaxThreads)
-dot_bwd_kernel(const float* __restrict__ x, const float* __restrict__ yt,
-               const float* __restrict__ dz, float* __restrict__ dx,
-               float* __restrict__ dyt, Shape s) {
+dot_bwd_kernel(const T* __restrict__ x, const T* __restrict__ yt,
+               const T* __restrict__ dz, T* __restrict__ dx,
+               T* __restrict__ dyt, Shape s) {
   constexpr int NEB = kE / TE;  // a thread holds features eb, eb + NEB, eb + 2 NEB, ...
   extern __shared__ __align__(16) float smem[];
   const int n = s.n, m = n - 1, P = n * (n - 1) / 2, tb = s.tb, ld = s.ld, rs = s.rs;
   float* st[2] = {smem, smem + operand_floats(tb, rs)};
   float* sdz[2] = {st[1] + operand_floats(tb, rs),
-                   st[1] + operand_floats(tb, rs) + staged_floats(tb * P)};
-  float* sdy = sdz[1] + staged_floats(tb * P);
-  float* sdx = sdy + staged_floats(tb * kE * m);
+                   st[1] + operand_floats(tb, rs) + staged_floats<T>(tb * P)};
+  float* sdy = sdz[1] + staged_floats<T>(tb * P);
+  float* sdx = sdy + staged_floats<T>(tb * kE * m);
 
   const long long ntile_b = (s.batch + tb - 1) / tb;
   long long tile = blockIdx.x;
   if (tile < ntile_b) {
     const Tile t = tile_at(tile, s);
     stage_operand(st[0], x + t.b0 * kE, yt + t.b0 * kE * m, t.rows, m, ld, rs, s.magic);
-    stage_floats(sdz[0] + phase16(dz + t.b0 * P), dz + t.b0 * P, t.rows * P);
+    stage_elems(sdz[0] + phase16(dz + t.b0 * P), dz + t.b0 * P, t.rows * P);
   }
   cp_async_commit();
   const int nib = (n + 3) >> 2;  // blocks of 4 rows i
@@ -281,14 +398,14 @@ dot_bwd_kernel(const float* __restrict__ x, const float* __restrict__ yt,
       const Tile nt = tile_at(tile + gridDim.x, s);
       stage_operand(st[cur ^ 1], x + nt.b0 * kE, yt + nt.b0 * kE * m, nt.rows, m, ld, rs,
                     s.magic);
-      stage_floats(sdz[cur ^ 1] + phase16(dz + nt.b0 * P), dz + nt.b0 * P, nt.rows * P);
+      stage_elems(sdz[cur ^ 1] + phase16(dz + nt.b0 * P), dz + nt.b0 * P, nt.rows * P);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
 
-    float* ydst = dyt + t.b0 * kE * m;
-    float* xdst = dx + t.b0 * kE;
+    T* ydst = dyt + t.b0 * kE * m;
+    T* xdst = dx + t.b0 * kE;
     float* ys = sdy + phase16(ydst);
     float* xs = sdx + phase16(xdst);
     const float* zb = sdz[cur] + phase16(dz + t.b0 * P);
@@ -377,8 +494,8 @@ dot_bwd_kernel(const float* __restrict__ x, const float* __restrict__ yt,
       }
     }
     __syncthreads();
-    store_floats(ydst, ys, t.rows * kE * m);
-    store_floats(xdst, xs, t.rows * kE);
+    store_elems(ydst, ys, t.rows * kE * m);
+    store_elems(xdst, xs, t.rows * kE);
   }
   cp_async_wait<0>();
 }
@@ -420,39 +537,63 @@ Shape make_shape(long long batch, int n, int tb) {
   return Shape{batch, n, tb, ld, kE * ld + 4, magic};
 }
 
-int launch_fwd(const float* x, const float* yt, float* z, const int* tiles, int ntiles,
+bool bad_launch(long long batch, int n, int tb, int threads) {
+  return batch < 0 || n < 2 || tb < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0;
+}
+
+template <typename T>
+int launch_fwd(const T* x, const T* yt, T* z, const int* tiles, int ntiles,
                const Shape& s, int threads, cudaStream_t stream) {
   const int P = s.n * (s.n - 1) / 2;
-  const size_t smem = sizeof(float) * (2 * operand_floats(s.tb, s.rs) + staged_floats(s.tb * P))
+  const size_t smem = sizeof(float) * (2 * operand_floats(s.tb, s.rs)
+                                       + staged_floats<T>(s.tb * P))
                       + sizeof(int) * 2 * ntiles;
   static GridCache cache;
   int grid = 0;
-  const int rc = launch_grid(dot_fwd_kernel, threads, smem,
+  const int rc = launch_grid(dot_fwd_kernel<T>, threads, smem,
                              (s.batch + s.tb - 1) / s.tb, &cache, &grid);
   if (rc != 0) return rc;
-  dot_fwd_kernel<<<grid, threads, smem, stream>>>(x, yt, z, tiles, ntiles, s);
+  dot_fwd_kernel<T><<<grid, threads, smem, stream>>>(x, yt, z, tiles, ntiles, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TE>
-int launch_bwd(const float* x, const float* yt, const float* dz, float* dx, float* dyt,
+template <typename T, int TE>
+int launch_bwd(const T* x, const T* yt, const T* dz, T* dx, T* dyt,
                const Shape& s, int threads, cudaStream_t stream) {
   const int m = s.n - 1, P = s.n * m / 2;
   const size_t smem = sizeof(float) * (2 * operand_floats(s.tb, s.rs)
-                                       + 2 * staged_floats(s.tb * P)
-                                       + staged_floats(s.tb * kE * m)
-                                       + staged_floats(s.tb * kE));
+                                       + 2 * staged_floats<T>(s.tb * P)
+                                       + staged_floats<T>(s.tb * kE * m)
+                                       + staged_floats<T>(s.tb * kE));
   static GridCache cache;
   int grid = 0;
-  const int rc = launch_grid(dot_bwd_kernel<TE>, threads, smem,
+  const int rc = launch_grid(dot_bwd_kernel<T, TE>, threads, smem,
                              (s.batch + s.tb - 1) / s.tb, &cache, &grid);
   if (rc != 0) return rc;
-  dot_bwd_kernel<TE><<<grid, threads, smem, stream>>>(x, yt, dz, dx, dyt, s);
+  dot_bwd_kernel<T, TE><<<grid, threads, smem, stream>>>(x, yt, dz, dx, dyt, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_launch(long long batch, int n, int tb, int threads) {
-  return batch < 0 || n < 2 || tb < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0;
+template <typename T>
+int dotprod_fwd(const T* x, const T* yt, T* z, const int* tiles, int ntiles, long long batch,
+                int n, int tb, int threads, void* stream) {
+  if (bad_launch(batch, n, tb, threads) || ntiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  return launch_fwd(x, yt, z, tiles, ntiles, make_shape(batch, n, tb), threads,
+                    static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int dotprod_bwd(const T* x, const T* yt, const T* dz, T* dx, T* dyt, long long batch, int n,
+                int te, int tb, int threads, void* stream) {
+  if (bad_launch(batch, n, tb, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const Shape s = make_shape(batch, n, tb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (te == 4) return launch_bwd<T, 4>(x, yt, dz, dx, dyt, s, threads, st);
+  if (te == 8) return launch_bwd<T, 8>(x, yt, dz, dx, dyt, s, threads, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -463,11 +604,14 @@ bool bad_launch(long long batch, int n, int tb, int threads) {
 extern "C" int nasrec_dotprod_fwd(const float* x, const float* yt, float* z, const int* tiles,
                                   int ntiles, long long batch, int n, int tb, int threads,
                                   void* stream) {
-  if (bad_launch(batch, n, tb, threads) || ntiles < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  return launch_fwd(x, yt, z, tiles, ntiles, make_shape(batch, n, tb), threads,
-                    static_cast<cudaStream_t>(stream));
+  return dotprod_fwd(x, yt, z, tiles, ntiles, batch, n, tb, threads, stream);
+}
+
+// The same in bf16 (sums in f32, z rounded once).
+extern "C" int nasrec_dotprod_fwd_bf16(const bf16* x, const bf16* yt, bf16* z, const int* tiles,
+                                       int ntiles, long long batch, int n, int tb, int threads,
+                                       void* stream) {
+  return dotprod_fwd(x, yt, z, tiles, ntiles, batch, n, tb, threads, stream);
 }
 
 // (x, yt, dz [batch, n(n-1)/2]) -> dx [batch, 16], dyt [batch, 16, n - 1].
@@ -475,11 +619,12 @@ extern "C" int nasrec_dotprod_fwd(const float* x, const float* yt, float* z, con
 extern "C" int nasrec_dotprod_bwd(const float* x, const float* yt, const float* dz, float* dx,
                                   float* dyt, long long batch, int n, int te, int tb,
                                   int threads, void* stream) {
-  if (bad_launch(batch, n, tb, threads)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const Shape s = make_shape(batch, n, tb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (te == 4) return launch_bwd<4>(x, yt, dz, dx, dyt, s, threads, st);
-  if (te == 8) return launch_bwd<8>(x, yt, dz, dx, dyt, s, threads, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dotprod_bwd(x, yt, dz, dx, dyt, batch, n, te, tb, threads, stream);
+}
+
+// The same in bf16 (sums in f32, dx and dyt rounded once).
+extern "C" int nasrec_dotprod_bwd_bf16(const bf16* x, const bf16* yt, const bf16* dz, bf16* dx,
+                                       bf16* dyt, long long batch, int n, int te, int tb,
+                                       int threads, void* stream) {
+  return dotprod_bwd(x, yt, dz, dx, dyt, batch, n, te, tb, threads, stream);
 }

@@ -35,8 +35,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace tiny_attn {
 
@@ -67,6 +70,44 @@ __device__ __forceinline__ void store16(float* dst, const float (&v)[kE]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// The kernels take their activations in f32 or bf16 and compute in f32: a
+// bf16 value is widened where it is loaded, and a result is rounded to bf16
+// (to nearest even) once, where it is stored.  16 bf16 values are 32 bytes,
+// two 16-byte accesses.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float v, float& dst) { dst = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16& dst) {
+  dst = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, float (&v)[kE]) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint4 raw = s4[q];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[8 * q + 2 * i] = f.x;
+      v[8 * q + 2 * i + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float (&v)[kE]) {
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[8 * q + 2 * i], v[8 * q + 2 * i + 1]);
+    d4[q] = raw;
+  }
 }
 
 // 2^x in one MUFU operation (see the note on its error above).

@@ -46,6 +46,14 @@
 // the block adds its warps' sums in warp order and writes one partial; a
 // second kernel sums the partials in block order.  No float atomics, so equal
 // inputs give equal bits.
+//
+// x, out, dout and dx are f32 or bf16, as in the JAX kernel (its output in
+// x's dtype, f32 inside); o, the statistics, the parameters, their partial
+// sums and gradients stay f32.  The kernels are templates on the element
+// type of x: a bf16 value is widened where it is loaded and a result rounded
+// once where it is stored.  A bf16 x is exact in the split-TF32 high part, so
+// the low part of the input projection's operand is zero; its product is
+// still computed (left to a later change).  Each entry point has a bf16 twin.
 
 #include <cstdint>
 
@@ -307,32 +315,34 @@ __device__ __forceinline__ void load_small_params(const float* __restrict__ prm,
 
 // The 16 features of slot s of batch row b, from [B, S, 16] or, slot-minor,
 // from [B, 16, S].
-__device__ __forceinline__ void load_x(const float* __restrict__ x, long long b, int s, int S,
+template <typename T>
+__device__ __forceinline__ void load_x(const T* __restrict__ x, long long b, int s, int S,
                                        int slot_minor, float (&v)[kE]) {
   if (slot_minor) {
-    const float* p = x + b * kE * S + s;
+    const T* p = x + b * kE * S + s;
 #pragma unroll
-    for (int e = 0; e < kE; ++e) v[e] = p[e * S];
+    for (int e = 0; e < kE; ++e) v[e] = to_f32(p[e * S]);
   } else {
     load16(x + (b * S + s) * kE, v);
   }
 }
 
-__device__ __forceinline__ void store_x(float* __restrict__ x, long long b, int s, int S,
+template <typename T>
+__device__ __forceinline__ void store_x(T* __restrict__ x, long long b, int s, int S,
                                         int slot_minor, const float (&v)[kE]) {
   if (slot_minor) {
-    float* p = x + b * kE * S + s;
+    T* p = x + b * kE * S + s;
 #pragma unroll
-    for (int e = 0; e < kE; ++e) p[e * S] = v[e];
+    for (int e = 0; e < kE; ++e) from_f32(v[e], p[e * S]);
   } else {
     store16(x + (b * S + s) * kE, v);
   }
 }
 
-template <bool kTrain>
+template <typename Act, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
-body_fwd_kernel(const float* __restrict__ x, const float* __restrict__ prm,
-                float* __restrict__ out, float* __restrict__ o_out,
+body_fwd_kernel(const Act* __restrict__ x, const float* __restrict__ prm,
+                Act* __restrict__ out, float* __restrict__ o_out,
                 float* __restrict__ stats_out, long long batch, int S, int rpt,
                 int slot_minor, float eps) {
   extern __shared__ __align__(16) float smem[];
@@ -483,10 +493,11 @@ __device__ __forceinline__ void write_weight(float* dst, const float* acc, int l
   }
 }
 
+template <typename Act>
 __global__ void __launch_bounds__(kMaxThreads, kBwdBlocksPerSm)
-body_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+body_bwd_kernel(const Act* __restrict__ x, const Act* __restrict__ dout,
                 const float* __restrict__ o_in, const float* __restrict__ stats,
-                const float* __restrict__ prm, float* __restrict__ dx,
+                const float* __restrict__ prm, Act* __restrict__ dx,
                 float* __restrict__ partial, long long batch, int S, int rpt,
                 int slot_minor, float eps) {
   extern __shared__ __align__(16) float smem[];
@@ -713,13 +724,9 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   dprm[i] = acc;
 }
 
-}  // namespace
-
-// o == nullptr selects the eval forward, which writes neither o nor stats.
-// slot_minor: x is [B, 16, S], not [B, S, 16].
-extern "C" int nasrec_body_fwd(const float* x, const float* prm, float* out, float* o,
-                               float* stats, long long batch, int S, int rpt,
-                               int threads, int slot_minor, float eps, void* stream) {
+template <typename T>
+int body_fwd(const T* x, const float* prm, T* out, float* o, float* stats, long long batch,
+             int S, int rpt, int threads, int slot_minor, float eps, void* stream) {
   if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const long long tiles = (batch + rpt - 1) / rpt;
@@ -727,17 +734,54 @@ extern "C" int nasrec_body_fwd(const float* x, const float* prm, float* out, flo
   const size_t smem = fwd_smem(threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc = cudaFuncSetAttribute(
-      o == nullptr ? body_fwd_kernel<false> : body_fwd_kernel<true>,
+      o == nullptr ? body_fwd_kernel<T, false> : body_fwd_kernel<T, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (o == nullptr) {
-    body_fwd_kernel<false><<<grid, threads, smem, st>>>(x, prm, out, nullptr, nullptr, batch,
-                                                        S, rpt, slot_minor, eps);
+    body_fwd_kernel<T, false><<<grid, threads, smem, st>>>(x, prm, out, nullptr, nullptr,
+                                                           batch, S, rpt, slot_minor, eps);
   } else {
-    body_fwd_kernel<true><<<grid, threads, smem, st>>>(x, prm, out, o, stats, batch, S, rpt,
-                                                       slot_minor, eps);
+    body_fwd_kernel<T, true><<<grid, threads, smem, st>>>(x, prm, out, o, stats, batch, S,
+                                                          rpt, slot_minor, eps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int body_bwd(const T* x, const T* dout, const float* o, const float* stats, const float* prm,
+             T* dx, float* partial, float* dprm, long long batch, int S, int rpt, int threads,
+             int nblocks, int slot_minor, float eps, void* stream) {
+  if (bad_tile(S, rpt, threads, kMaxThreads) || nblocks < 1 || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_smem(threads);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      body_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  body_bwd_kernel<T><<<nblocks, threads, smem, st>>>(x, dout, o, stats, prm, dx, partial,
+                                                     batch, S, rpt, slot_minor, eps);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  reduce_partials_kernel<<<(kParams + 255) / 256, 256, 0, st>>>(partial, dprm, nblocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// o == nullptr selects the eval forward, which writes neither o nor stats.
+// slot_minor: x is [B, 16, S], not [B, S, 16].
+extern "C" int nasrec_body_fwd(const float* x, const float* prm, float* out, float* o,
+                               float* stats, long long batch, int S, int rpt,
+                               int threads, int slot_minor, float eps, void* stream) {
+  return body_fwd(x, prm, out, o, stats, batch, S, rpt, threads, slot_minor, eps, stream);
+}
+
+// The same with x and out in bf16; o and stats stay f32.
+extern "C" int nasrec_body_fwd_bf16(const __nv_bfloat16* x, const float* prm,
+                                    __nv_bfloat16* out, float* o, float* stats,
+                                    long long batch, int S, int rpt, int threads,
+                                    int slot_minor, float eps, void* stream) {
+  return body_fwd(x, prm, out, o, stats, batch, S, rpt, threads, slot_minor, eps, stream);
 }
 
 // partial is scratch of [nblocks, 1696] floats; the grid is `nblocks` blocks of
@@ -749,17 +793,16 @@ extern "C" int nasrec_body_bwd(const float* x, const float* dout, const float* o
                                float* partial, float* dprm, long long batch, int S,
                                int rpt, int threads, int nblocks, int slot_minor, float eps,
                                void* stream) {
-  if (bad_tile(S, rpt, threads, kMaxThreads) || nblocks < 1 || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_smem(threads);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      body_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  body_bwd_kernel<<<nblocks, threads, smem, st>>>(x, dout, o, stats, prm, dx, partial, batch,
-                                                  S, rpt, slot_minor, eps);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess) return static_cast<int>(launched);
-  reduce_partials_kernel<<<(kParams + 255) / 256, 256, 0, st>>>(partial, dprm, nblocks);
-  return static_cast<int>(cudaGetLastError());
+  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, S, rpt, threads, nblocks,
+                  slot_minor, eps, stream);
+}
+
+// The same with x, dout and dx in bf16; o, stats, partial and dprm stay f32.
+extern "C" int nasrec_body_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dout,
+                                    const float* o, const float* stats, const float* prm,
+                                    __nv_bfloat16* dx, float* partial, float* dprm,
+                                    long long batch, int S, int rpt, int threads, int nblocks,
+                                    int slot_minor, float eps, void* stream) {
+  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, S, rpt, threads, nblocks,
+                  slot_minor, eps, stream);
 }

@@ -11,6 +11,11 @@ Sparse activations flow in the flat slot-major [B, S*E] layout between blocks
 (see ops/common.py), as in the JAX package, so the module tree and its
 parameter names mirror the JAX pytree and `models/transplant.py` maps one to
 the other by name.
+
+`compute_dtype` (float32 or bfloat16) is the activations' dtype, as in
+`nasrec_tpu/models/fixed.py :: fixed_apply`: the dense input and the
+looked-up stem are cast to it once, every op keeps it (ops/common.py), and
+the logits come back float32.  The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -270,11 +275,12 @@ class FixedModel(nn.Module):
         self.reads = tuple(_block_reads(plan, bp) for bp in plan.blocks)
 
     def forward_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
-                         impl: str = "auto") -> torch.Tensor:
-        """Forward from a looked-up flat stem [B, S*E] -> logits [B, 1]."""
+                         impl: str = "auto",
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Forward from a looked-up flat stem [B, S*E] -> float32 logits [B, 1]."""
         plan = self.plan
-        dense_list = [dense_x]
-        sparse_list = [stem]
+        dense_list = [dense_x.to(compute_dtype)]
+        sparse_list = [stem.to(compute_dtype)]
         for bp, block, live, (dense, sparse, sides) in zip(
                 plan.blocks, self.blocks, self.live, self.reads):
             if not live:                 # nothing downstream reads this block
@@ -300,14 +306,14 @@ class FixedModel(nn.Module):
             flat_sparse = torch.cat(tail, dim=-1).reshape(dense_x.shape[0], -1)
         else:
             flat_sparse = sparse_list[-1]  # flat layout == the reference flatten
-        out = self.final(torch.cat([flat_dense, flat_sparse], dim=-1))
+        out = self.final(torch.cat([flat_dense, flat_sparse], dim=-1)).float()
         if plan.use_final_sigmoid:
             out = torch.sigmoid(out)
         return out
 
-    def forward(self, dense_x: torch.Tensor, cat_x: torch.Tensor,
-                impl: str = "auto") -> torch.Tensor:
-        return self.forward_embedded(dense_x, self.embedding(cat_x), impl)
+    def forward(self, dense_x: torch.Tensor, cat_x: torch.Tensor, impl: str = "auto",
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.forward_embedded(dense_x, self.embedding(cat_x), impl, compute_dtype)
 
 
 def fixed_init(plan: FixedPlan, seed: int = 0, device="cpu") -> FixedModel:
@@ -317,13 +323,15 @@ def fixed_init(plan: FixedPlan, seed: int = 0, device="cpu") -> FixedModel:
     return FixedModel(plan, gen, device)
 
 
-def fixed_apply(model: FixedModel, dense_x, cat_x, impl: str = "auto") -> torch.Tensor:
-    """Forward pass of the fixed subnet -> logits [B, 1]."""
-    return model(dense_x, cat_x, impl)
+def fixed_apply(model: FixedModel, dense_x, cat_x, impl: str = "auto",
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Forward pass of the fixed subnet -> float32 logits [B, 1]."""
+    return model(dense_x, cat_x, impl, compute_dtype)
 
 
-def fixed_apply_embedded(model: FixedModel, dense_x, stem, impl: str = "auto") -> torch.Tensor:
+def fixed_apply_embedded(model: FixedModel, dense_x, stem, impl: str = "auto",
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Forward with a precomputed stem, [B, S, E] or flat [B, S*E]."""
     if stem.dim() == 3:
         stem = stem.reshape(stem.shape[0], -1)
-    return model.forward_embedded(dense_x, stem, impl)
+    return model.forward_embedded(dense_x, stem, impl, compute_dtype)

@@ -17,6 +17,10 @@ Module and parameter names mirror the JAX pytree: `embedding.table`,
 parameterless module where JAX holds `{}` for a zeros node),
 `blocks.<i>.{ds_proj, ds_ln, deep_fm}` and `final`, so `models/transplant.py`
 maps one to the other by name.
+
+`compute_dtype` is the activations' dtype, as in the JAX package's
+`supernet_apply`: the dense input and the stem are cast to it once, masks and
+gates are cast to it where they multiply, and the logits come back float32.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def _make_node(cfg: SuperNetConfig, i: int, name: str, gen, device) -> nn.Module
 def _masked_concat(tensors: Sequence[torch.Tensor], sel: torch.Tensor) -> torch.Tensor:
     """Concat prior outputs, each scaled by its 0/1 selector (the reference's
     zero-tensor substitution, ref: supernet.py:536-568)."""
-    parts = [t * sel[j] for j, t in enumerate(tensors)]
+    parts = [t * sel[j].to(t.dtype) for j, t in enumerate(tensors)]
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
@@ -127,6 +131,7 @@ class SuperNetBlock(nn.Module):
                 impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg, i, e = self.cfg, self.i, self.cfg.emb_dim
         act, ddim, sdim = masks.node_act[i], masks.dense_dim[i], masks.sparse_dim[i]
+        act = act.to(dense_in.dtype)
         s_in = cfg.block_sparse_in(i)
         dense_outs: List[torch.Tensor] = []
         sparse_outs: List[torch.Tensor] = []
@@ -157,10 +162,10 @@ class SuperNetBlock(nn.Module):
             proj = self.ds_proj(dense_out)
             if self.ds_ln is not None:
                 proj = self.ds_ln(proj)
-        proj = proj * masks.interact[i]
+        proj = proj * masks.interact[i].to(proj.dtype)
         # DeepFM: sparse -> dense residual (ref: supernet.py:1154-1157).
         fm = self.deep_fm(sparse_out, cfg.space.max_sparse_dim, e, ddim)
-        dense_out = dense_out + fm * masks.deep_fm[i]
+        dense_out = dense_out + fm * masks.deep_fm[i].to(fm.dtype)
         return dense_out, torch.cat([sparse_out, proj], dim=-1)
 
 
@@ -177,14 +182,15 @@ class SuperNet(nn.Module):
         self.final = Linear(cfg.head_width(), 1, True, generator, device)
 
     def head_features_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
-                               masks: ChoiceMasks, impl: str = "auto") -> torch.Tensor:
-        """The features the final linear reads, [B, head_width], from a
-        looked-up flat stem [B, S*E].  `masks` may be host (numpy) or device
-        masks."""
+                               masks: ChoiceMasks, impl: str = "auto",
+                               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The features the final linear reads, [B, head_width] in
+        `compute_dtype`, from a looked-up flat stem [B, S*E].  `masks` may be
+        host (numpy) or device masks."""
         cfg = self.cfg
         masks = masks.to(dense_x.device)
-        dense_list = [dense_x]
-        sparse_list = [stem]
+        dense_list = [dense_x.to(compute_dtype)]
+        sparse_list = [stem.to(compute_dtype)]
         for i, block in enumerate(self.blocks):
             d_out, s_out = block(
                 _masked_concat(dense_list, masks.dense_sel[i]),
@@ -207,20 +213,24 @@ class SuperNet(nn.Module):
         return torch.cat([flat_dense, flat_sparse], dim=-1)
 
     def head(self, features: torch.Tensor) -> torch.Tensor:
-        """The final linear (and sigmoid, where configured) on head features."""
-        out = self.final(features)
+        """The final linear (and sigmoid, where configured) on head features,
+        in their dtype; the logits come back float32."""
+        out = self.final(features).float()
         if self.cfg.use_final_sigmoid:
             out = torch.sigmoid(out)
         return out
 
     def forward_embedded(self, dense_x: torch.Tensor, stem: torch.Tensor,
-                         masks: ChoiceMasks, impl: str = "auto") -> torch.Tensor:
-        """Forward from a looked-up flat stem [B, S*E] -> logits [B, 1]."""
-        return self.head(self.head_features_embedded(dense_x, stem, masks, impl))
+                         masks: ChoiceMasks, impl: str = "auto",
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Forward from a looked-up flat stem [B, S*E] -> float32 logits [B, 1]."""
+        return self.head(self.head_features_embedded(dense_x, stem, masks, impl,
+                                                     compute_dtype))
 
     def forward(self, dense_x: torch.Tensor, cat_x: torch.Tensor, masks: ChoiceMasks,
-                impl: str = "auto") -> torch.Tensor:
-        return self.forward_embedded(dense_x, self.embedding(cat_x), masks, impl)
+                impl: str = "auto", compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.forward_embedded(dense_x, self.embedding(cat_x), masks, impl,
+                                     compute_dtype)
 
 
 def supernet_init(cfg: SuperNetConfig, seed: int = 0, device="cpu") -> SuperNet:
@@ -232,14 +242,16 @@ def supernet_init(cfg: SuperNetConfig, seed: int = 0, device="cpu") -> SuperNet:
 
 
 def supernet_apply(model: SuperNet, dense_x, cat_x, masks: ChoiceMasks,
-                   impl: str = "auto") -> torch.Tensor:
-    """Forward pass -> logits [B, 1].  The same launches for every subnet."""
-    return model(dense_x, cat_x, masks, impl)
+                   impl: str = "auto",
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Forward pass -> float32 logits [B, 1].  The same launches for every subnet."""
+    return model(dense_x, cat_x, masks, impl, compute_dtype)
 
 
 def supernet_apply_embedded(model: SuperNet, dense_x, stem, masks: ChoiceMasks,
-                            impl: str = "auto") -> torch.Tensor:
+                            impl: str = "auto",
+                            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Forward with a precomputed stem, [B, S, E] or flat [B, S*E]."""
     if stem.dim() == 3:
         stem = stem.reshape(stem.shape[0], -1)
-    return model.forward_embedded(dense_x, stem, masks, impl)
+    return model.forward_embedded(dense_x, stem, masks, impl, compute_dtype)

@@ -15,12 +15,16 @@ projection, the body, has three forms that compute the same function:
     `ops/kernels/transformer_body.py`, as the JAX package runs
     `transformer_body_fused` under attention_impl="pallas".  On a CPU tensor
     the wrapper takes the kernel's plain version.
-  - impl="plain": op by op through this module's layers, with the attention
-    core written out (the JAX package's impl="xla" path).
-  - unfused (the node's attribute `fused` set to False): op by op, with the
-    attention core through `ops/kernels/attention.py` (its kernel on the
-    card), the counterpart of `_transformer_bmajor_unfused`.  Tests and the
-    on-card smoke run reach it; no model selects it.
+  - impl="plain": the kernels' plain version, `transformer_body_plain`, which
+    computes in float32 and rounds its output to the input's dtype once, as
+    the kernels do.
+  - unfused (the node's attribute `fused` set to False): op by op through
+    this module's layers, each op in the activations' dtype (a bf16 body
+    rounds after every op, as the JAX package's impl="xla" path does), with
+    the attention core through `ops/kernels/attention.py` (its kernel on the
+    card, its plain version on the CPU) or, with impl="plain", written out,
+    its softmax in float32.  The counterparts of `_transformer_bmajor_unfused`
+    and `_mha`.  Tests and the on-card smoke run reach it; no model selects it.
 
 In the supernet a slot mask multiplies the projection's output before the
 body and the body's output after it (ref: modules.py:653-662, :678-686), in
@@ -38,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nasrec_tpu_torch.config import LN_INIT, NUM_MHA_HEADS
-from nasrec_tpu_torch.ops.common import LayerNorm, Linear, apply_mask, xavier_uniform_
+from nasrec_tpu_torch.ops.common import LayerNorm, Linear, apply_mask, linear_cast, xavier_uniform_
 from nasrec_tpu_torch.ops.kernels.attention import tiny_head_attention
 from nasrec_tpu_torch.ops.kernels.transformer_body import transformer_body
 
@@ -60,18 +64,18 @@ class MultiheadAttention(nn.Module):
         through `tiny_head_attention` (the kernel for a CUDA tensor)."""
         b, s, e = x.shape
         hd = e // num_heads
-        qkv = F.linear(x, self.w_in, self.b_in)
+        qkv = linear_cast(x, self.w_in, self.b_in)
         if impl != "plain":
-            return F.linear(tiny_head_attention(qkv, num_heads, impl), self.w_out, self.b_out)
+            return linear_cast(tiny_head_attention(qkv, num_heads, impl), self.w_out, self.b_out)
         q, k, v = qkv.split(e, dim=-1)
 
         def heads(t):
             return t.reshape(b, s, num_heads, hd).transpose(1, 2)   # [B, H, S, hd]
 
         scores = heads(q) @ heads(k).transpose(-1, -2) / (hd ** 0.5)
-        out = torch.softmax(scores, dim=-1) @ heads(v)
+        out = torch.softmax(scores.float(), dim=-1).to(x.dtype) @ heads(v)
         out = out.transpose(1, 2).reshape(b, s, e)
-        return F.linear(out, self.w_out, self.b_out)
+        return linear_cast(out, self.w_out, self.b_out)
 
 
 class Transformer(nn.Module):
@@ -106,7 +110,7 @@ class Transformer(nn.Module):
             xt = self.proj_ln(xt)
         xt = apply_mask(xt, slot_mask)              # the slot axis is last here
         x = xt.transpose(1, 2)                      # [B, S, E], a view: no copy
-        if self.fused and impl != "plain":
+        if self.fused:
             x = transformer_body(x, self.body_params(), num_heads, impl)
         else:
             x = self.attn_ln(self.mha(x, num_heads, impl) + x)   # residual + LN (ref :666-668)

@@ -6,6 +6,12 @@ Weights use PyTorch's layout: a linear weight is [out, in] and applies as
 `models/transplant.py` transposes).  Init parity with the reference
 (ref: nasrec/utils/train_utils.py:70-89): linear -> xavier-uniform weight and
 zero bias, embedding -> xavier-normal.  LayerNorm eps is torch's 1e-5.
+
+Compute dtype (the JAX package's rule, `nasrec_tpu/ops/common.py`): the
+parameters stay float32; a linear casts its weight and bias to its input's
+dtype at the call, and a LayerNorm takes its statistics and affine in
+float32 and returns its input's dtype.  So a bf16 activation stays bf16
+through every op, and the parameters' gradients come back float32.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ class Linear(nn.Linear):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_cast(x, self.weight, self.bias)
+
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis, eps 1e-5, weight filled with `init`."""
@@ -53,6 +62,22 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(dim, eps=LN_EPS, device=device)
         with torch.no_grad():
             self.weight.fill_(init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_cast(x, self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+def linear_cast(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """F.linear with the weight and bias cast to x's dtype."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm_cast(x: torch.Tensor, shape, w: torch.Tensor, b: torch.Tensor,
+                    eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm with its statistics and affine in float32, in x's dtype."""
+    if x.dtype == torch.float32:
+        return F.layer_norm(x, shape, w, b, eps)
+    return F.layer_norm(x.float(), shape, w, b, eps).to(x.dtype)
 
 
 ACTIVATIONS = {
@@ -94,13 +119,13 @@ def emajor_to_flat(xt: torch.Tensor) -> torch.Tensor:
 
 def linear_apply_e(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """Feature linear on E-major [B, E, S]: contract the E axis."""
-    y = torch.einsum("fe,bes->bfs", lin.weight, x)
+    y = torch.einsum("fe,bes->bfs", lin.weight.to(x.dtype), x)
     if lin.bias is not None:
-        y = y + lin.bias[None, :, None]
+        y = y + lin.bias.to(x.dtype)[None, :, None]
     return y
 
 
 def ln_apply_e(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the E axis of E-major [B, E, S]."""
-    return F.layer_norm(x.transpose(1, 2), ln.normalized_shape, ln.weight,
-                        ln.bias, ln.eps).transpose(1, 2)
+    return layer_norm_cast(x.transpose(1, 2), ln.normalized_shape, ln.weight,
+                           ln.bias, ln.eps).transpose(1, 2)

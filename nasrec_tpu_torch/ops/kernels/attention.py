@@ -6,7 +6,10 @@ tiny_head_attention_bmajor.  The TPU kernel takes batch-on-lanes stacked
 qkv[3E, S, B]; this one takes batch-major qkv [B, S, 48] (q, k and v stacked
 on the last axis, as `F.linear(x, w_in, b_in)` leaves them) and returns
 o [B, S, 16].  Eight heads of width 2; the backward is a kernel too and
-recomputes the softmax from qkv, since nothing is saved.
+recomputes the softmax from qkv, since nothing is saved.  qkv, o, do and
+dqkv are float32 or bfloat16 (one dtype for all four); a bf16 kernel computes
+in f32 and rounds each output once, and its plain version does the same:
+the f32 plain version on the widened inputs, rounded once.
 
 The kernels fold the softmax into base-2 exponentials of pre-scaled scores and
 one statistic a head (`csrc/tiny_attn.cuh`); `tiny_head_attention_folded` and
@@ -29,9 +32,18 @@ HEADS = 8
 # batch row is never split, so the kernels take S <= 128.
 TILE_THREADS = 128
 
-# Launches of each kernel, keyed "fwd_s<S>" / "bwd_s<S>"; added to where a
-# kernel is launched and nowhere else.
+# Launches of each kernel, keyed "fwd_s<S>" / "bwd_s<S>" (with "_bf16" added
+# for a bf16 launch); added to where a kernel is launched and nowhere else.
 LAUNCHES: Counter = Counter()
+
+# The dtypes of the activations a kernel takes; everything else is float32.
+ACTIVATION_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    """The suffix of a bf16 kernel's C entry point and launch key: "_bf16"
+    for bfloat16, "" for float32."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def tile_geometry(s: int) -> tuple:
@@ -43,7 +55,11 @@ def tile_geometry(s: int) -> tuple:
 
 
 def tiny_head_attention_plain(qkv: torch.Tensor, num_heads: int = HEADS) -> torch.Tensor:
-    """Plain version: qkv [B, S, 3E] -> softmax(q k^T / sqrt(hd)) v, [B, S, E]."""
+    """Plain version: qkv [B, S, 3E] -> softmax(q k^T / sqrt(hd)) v, [B, S, E].
+    A bf16 qkv is computed in f32 and the output rounded once, as the kernel
+    does."""
+    if qkv.dtype != torch.float32:
+        return tiny_head_attention_plain(qkv.float(), num_heads).to(qkv.dtype)
     b, s, e3 = qkv.shape
     e = e3 // 3
     hd = e // num_heads
@@ -102,9 +118,21 @@ def tiny_head_attention_folded_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch
     return torch.cat([t.reshape(b, s, e3 // 3) for t in (dq, dk, dv)], dim=-1)
 
 
-def check_f32_cuda(x: torch.Tensor, what: str, shape: tuple) -> None:
-    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{what}: needs a contiguous float32 CUDA tensor, got "
+def check_activation_dtype(x: torch.Tensor, what: str) -> torch.dtype:
+    """x's dtype, where a kernel takes it for its activations (float32 or
+    bfloat16); raises on any other."""
+    if x.dtype not in ACTIVATION_DTYPES:
+        raise ValueError(f"{what}: the kernels take float32 or bfloat16 activations, "
+                         f"got {x.dtype}")
+    return x.dtype
+
+
+def check_cuda(x: torch.Tensor, what: str, shape: tuple, dtype: torch.dtype) -> None:
+    """x is a contiguous CUDA tensor of `dtype` and `shape` whose first
+    element lies on a 16-byte boundary; raises otherwise.  An activation
+    operand passes its first activation's dtype, so mixed operands raise."""
+    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{what}: needs a contiguous {dtype} CUDA tensor, got "
                          f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
     if x.data_ptr() % 16:
         raise ValueError(f"{what}: the kernels load 16 bytes at a time and need the "
@@ -117,7 +145,8 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int) -> tuple:
     if qkv.dim() != 3 or qkv.shape[2] != 3 * EMB or num_heads != HEADS or qkv.shape[0] < 1:
         raise ValueError(f"tiny_head_attention: the kernel takes qkv [B >= 1, S, {3 * EMB}] "
                          f"with {HEADS} heads, got {tuple(qkv.shape)} with {num_heads}")
-    check_f32_cuda(qkv, "tiny_head_attention (qkv)", qkv.shape)
+    dtype = check_activation_dtype(qkv, "tiny_head_attention (qkv)")
+    check_cuda(qkv, "tiny_head_attention (qkv)", qkv.shape, dtype)
     return qkv.shape[0], qkv.shape[1]
 
 
@@ -127,9 +156,11 @@ def tiny_head_attention_fwd_kernel(qkv: torch.Tensor, num_heads: int = HEADS) ->
     rpt, threads = tile_geometry(s)
     o = torch.empty((b, s, EMB), device=qkv.device, dtype=qkv.dtype)
     lib = build.load_library("attention")
-    build.check(lib.nasrec_attn_fwd(qkv.data_ptr(), o.data_ptr(), b, s, rpt, threads,
-                                    build.current_stream()), "attention fwd")
-    LAUNCHES[f"fwd_s{s}"] += 1
+    sfx = dtype_suffix(qkv.dtype)
+    build.check(getattr(lib, f"nasrec_attn_fwd{sfx}")(
+        qkv.data_ptr(), o.data_ptr(), b, s, rpt, threads, build.current_stream()),
+        "attention fwd")
+    LAUNCHES[f"fwd_s{s}{sfx}"] += 1
     return o
 
 
@@ -137,13 +168,15 @@ def tiny_head_attention_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor,
                                    num_heads: int = HEADS) -> torch.Tensor:
     """Launch the backward kernel: (qkv [B, S, 48], do [B, S, 16]) -> dqkv."""
     b, s = _check_qkv(qkv, num_heads)
-    check_f32_cuda(do, "tiny_head_attention backward (do)", (b, s, EMB))
+    check_cuda(do, "tiny_head_attention backward (do)", (b, s, EMB), qkv.dtype)
     rpt, threads = tile_geometry(s)
     dqkv = torch.empty_like(qkv)
     lib = build.load_library("attention")
-    build.check(lib.nasrec_attn_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s,
-                                    rpt, threads, build.current_stream()), "attention bwd")
-    LAUNCHES[f"bwd_s{s}"] += 1
+    sfx = dtype_suffix(qkv.dtype)
+    build.check(getattr(lib, f"nasrec_attn_bwd{sfx}")(
+        qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, rpt, threads,
+        build.current_stream()), "attention bwd")
+    LAUNCHES[f"bwd_s{s}{sfx}"] += 1
     return dqkv
 
 

@@ -66,6 +66,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
 }
 
+# Every kernel but the table update has a bf16 twin of each entry point, with
+# the same arguments (ctypes binds by name).
+for _name in ("dotprod", "attention", "transformer_body"):
+    SIGNATURES[_name].update({f"{fn}_bf16": args for fn, args in SIGNATURES[_name].items()})
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

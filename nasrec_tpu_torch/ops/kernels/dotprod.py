@@ -8,7 +8,9 @@ projected slots yt [B, 16, m] (feature-major, slot-minor), and writes z [B, P]
 (P = n(n-1)/2, n = m + 1, row-major triangle order, ref modules.py:366-383),
 the layout the out-projection consumes.  Row 0 of the triangle's operand is
 x, row 1 + k is slot k.  The backward is a kernel too: it computes dx and dyt
-straight from dz, in the operands' own layouts (see the .cu file).
+straight from dz, in the operands' own layouts (see the .cu file).  x, yt, z,
+dz, dx and dyt are float32 or bfloat16 (one dtype for all); a bf16 kernel sums
+in f32 and rounds each output once, and so does the plain version.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ from typing import Dict, Tuple
 import torch
 
 from nasrec_tpu_torch.ops.kernels import build
+from nasrec_tpu_torch.ops.kernels.attention import check_activation_dtype, dtype_suffix
 
 EMB = 16
 SMEM_MAX = 232_448       # bytes of shared memory a block can use on an H100
 
-# Launches of each kernel, keyed "fwd_n<n>" / "bwd_n<n>"; added to where a
-# kernel is launched and nowhere else.
+# Launches of each kernel, keyed "fwd_n<n>" / "bwd_n<n>" (with "_bf16" added
+# for a bf16 launch); added to where a kernel is launched and nowhere else.
 LAUNCHES: Counter = Counter()
 
 # Launch shapes that replace the defaults of `fwd_config` / `bwd_config`,
@@ -46,7 +49,10 @@ def _tril_flat_index(n: int, device) -> torch.Tensor:
 
 def dot_scores_tril_plain(x: torch.Tensor, yt: torch.Tensor) -> torch.Tensor:
     """Plain version: x [B, E], yt [B, E, m] -> z [B, n(n-1)/2], n = m + 1
-    (concat, einsum and a gather of the triangle)."""
+    (concat, einsum and a gather of the triangle).  bf16 operands are summed
+    in f32 and z rounded once, as the kernel does."""
+    if x.dtype != torch.float32:
+        return dot_scores_tril_plain(x.float(), yt.float()).to(x.dtype)
     t = torch.cat([x[:, None, :], yt.transpose(1, 2)], dim=1)     # [B, n, E]
     b, n, _ = t.shape
     z = torch.einsum("bne,bme->bnm", t, t)
@@ -129,9 +135,9 @@ def bwd_config(n: int) -> tuple:
     return TUNE.get(("bwd", n)) or _default_bwd_config(n)
 
 
-def _check(t: torch.Tensor, what: str, shape: tuple) -> None:
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{what}: needs a contiguous float32 CUDA tensor, got "
+def _check(t: torch.Tensor, what: str, shape: tuple, dtype: torch.dtype) -> None:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{what}: needs a contiguous {dtype} CUDA tensor, got "
                          f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if tuple(t.shape) != shape:
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {shape}")
@@ -142,10 +148,14 @@ def _check_operands(x: torch.Tensor, yt: torch.Tensor) -> Tuple[int, int]:
         raise ValueError(f"dot_scores_tril: x must be [B, {EMB}] and yt [B, {EMB}, m >= 1], "
                          f"got {tuple(x.shape)} and {tuple(yt.shape)}")
     b, m = x.shape[0], yt.shape[2]
-    _check(x, "dot_scores_tril (x)", (b, EMB))
-    _check(yt, "dot_scores_tril (yt)", (b, EMB, m))
+    dtype = check_activation_dtype(x, "dot_scores_tril (x)")
+    _check(x, "dot_scores_tril (x)", (b, EMB), dtype)
+    _check(yt, "dot_scores_tril (yt)", (b, EMB, m), dtype)
     if yt.device != x.device:
         raise ValueError("dot_scores_tril: x and yt lie on different devices")
+    if dtype == torch.bfloat16 and (x.data_ptr() % 16 or yt.data_ptr() % 16):
+        raise ValueError("dot_scores_tril: the bf16 kernels load x and yt 16 bytes at a "
+                         "time and need each tensor's first element aligned to 16 bytes")
     return b, m + 1
 
 
@@ -159,10 +169,11 @@ def dot_scores_tril_fwd_kernel(x: torch.Tensor, yt: torch.Tensor) -> torch.Tenso
                                                            device=x.device)
     z = torch.empty((b, tril_size(n)), device=x.device, dtype=x.dtype)
     lib = build.load_library("dotprod")
-    build.check(lib.nasrec_dotprod_fwd(x.data_ptr(), yt.data_ptr(), z.data_ptr(),
-                                       tiles.data_ptr(), tiles.shape[0], b, n, tb, threads,
-                                       build.current_stream()), "dotprod fwd")
-    LAUNCHES[f"fwd_n{n}"] += 1
+    sfx = dtype_suffix(x.dtype)
+    build.check(getattr(lib, f"nasrec_dotprod_fwd{sfx}")(
+        x.data_ptr(), yt.data_ptr(), z.data_ptr(), tiles.data_ptr(), tiles.shape[0], b, n,
+        tb, threads, build.current_stream()), "dotprod fwd")
+    LAUNCHES[f"fwd_n{n}{sfx}"] += 1
     return z
 
 
@@ -170,21 +181,29 @@ def dot_scores_tril_bwd_kernel(x: torch.Tensor, yt: torch.Tensor, dz: torch.Tens
     """Launch the backward kernel: (x [B, 16], yt [B, 16, m], dz [B, P]) ->
     (dx [B, 16], dyt [B, 16, m])."""
     b, n = _check_operands(x, yt)
-    _check(dz, "dot_scores_tril backward (dz)", (b, tril_size(n)))
+    _check(dz, "dot_scores_tril backward (dz)", (b, tril_size(n)), x.dtype)
     te, tb, threads = bwd_config(n)
     dx, dyt = torch.empty_like(x), torch.empty_like(yt)
     lib = build.load_library("dotprod")
-    build.check(lib.nasrec_dotprod_bwd(x.data_ptr(), yt.data_ptr(), dz.data_ptr(),
-                                       dx.data_ptr(), dyt.data_ptr(), b, n, te, tb, threads,
-                                       build.current_stream()), "dotprod bwd")
-    LAUNCHES[f"bwd_n{n}"] += 1
+    sfx = dtype_suffix(x.dtype)
+    build.check(getattr(lib, f"nasrec_dotprod_bwd{sfx}")(
+        x.data_ptr(), yt.data_ptr(), dz.data_ptr(), dx.data_ptr(), dyt.data_ptr(), b, n, te,
+        tb, threads, build.current_stream()), "dotprod bwd")
+    LAUNCHES[f"bwd_n{n}{sfx}"] += 1
     return dx, dyt
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where it is bf16 and its first element is off a
+    16-byte boundary (a view into a larger tensor): the bf16 kernels load x
+    and yt 16 bytes at a time, the f32 ones 4."""
+    return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
 
 
 class _DotScoresTril(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, yt):
-        x, yt = x.contiguous(), yt.contiguous()
+        x, yt = _aligned(x.contiguous()), _aligned(yt.contiguous())
         ctx.save_for_backward(x, yt)
         return dot_scores_tril_fwd_kernel(x, yt)
 

@@ -24,6 +24,13 @@ bit-identically from run to run (per-block partials summed in block order, no
 atomics).  The kernels' matrix products (the feature linears and the parameter
 gradients) run on the tensor cores as TF32 products of operands split three
 ways; `matmul_tf32x3` is that product's plain version.
+
+x, out, dout and dx are float32 or bfloat16 (one dtype for all four), as in
+the JAX kernel; o, the statistics, the parameters and their gradients are
+float32 either way.  A bf16 kernel computes in f32 and rounds each output
+once; its plain version is the f32 plain version on the widened input, its
+output rounded once (autograd then returns dx in bf16 and the parameter
+gradients in f32, as the kernels do).
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ from nasrec_tpu_torch.ops.kernels import build
 from nasrec_tpu_torch.ops.kernels.attention import (
     EMB,
     HEADS,
-    check_f32_cuda,
+    check_activation_dtype,
+    check_cuda,
+    dtype_suffix,
     tile_geometry,
     tiny_head_attention_plain,
 )
@@ -57,8 +66,8 @@ BWD_BLOCKS_PER_SM = 2
 NUM_SMS = 132
 
 # Launches, keyed "fwd_s<S>" (eval forward), "fwd_train_s<S>" (forward that
-# saves o and the statistics) and "bwd_s<S>"; added to where a kernel is
-# launched and nowhere else.
+# saves o and the statistics) and "bwd_s<S>", with "_bf16" added for a bf16
+# launch; added to where a kernel is launched and nowhere else.
 LAUNCHES: Counter = Counter()
 
 
@@ -82,7 +91,10 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def transformer_body_plain(x: torch.Tensor, params: Sequence[torch.Tensor],
                            num_heads: int = HEADS) -> torch.Tensor:
-    """Plain version, op by op on x [B, S, E]."""
+    """Plain version, op by op on x [B, S, E]; a bf16 x is computed in f32
+    and the output rounded once, as the kernels do."""
+    if x.dtype != torch.float32:
+        return transformer_body_plain(x.float(), params, num_heads).to(x.dtype)
     w_in, b_in, w_out, b_out, g1, h1, fc1w, fc1b, fc2w, fc2b, g2, h2 = params
     e = x.shape[-1]
     o = tiny_head_attention_plain(F.linear(x, w_in, b_in), num_heads)
@@ -112,9 +124,10 @@ def _check_x(x: torch.Tensor, flat: torch.Tensor) -> tuple:
     if x.dim() != 3 or x.shape[2] != EMB or x.shape[0] < 1:
         raise ValueError(f"transformer_body: x must be [B >= 1, S, {EMB}], got {tuple(x.shape)}")
     slot_minor = _slot_minor(x)
-    check_f32_cuda(x.transpose(1, 2) if slot_minor else x, "transformer_body (x)",
-                   (x.shape[0], EMB, x.shape[1]) if slot_minor else x.shape)
-    check_f32_cuda(flat, "transformer_body (parameters)", (NUM_PARAM_FLOATS,))
+    dtype = check_activation_dtype(x, "transformer_body (x)")
+    check_cuda(x.transpose(1, 2) if slot_minor else x, "transformer_body (x)",
+               (x.shape[0], EMB, x.shape[1]) if slot_minor else x.shape, dtype)
+    check_cuda(flat, "transformer_body (parameters)", (NUM_PARAM_FLOATS,), torch.float32)
     return x.shape[0], x.shape[1], slot_minor
 
 
@@ -122,40 +135,44 @@ def transformer_body_fwd_kernel(x: torch.Tensor, flat: torch.Tensor, save: bool)
     """Launch the forward kernel on x [B, S, 16] (contiguous, or the transposed
     view of a contiguous [B, 16, S]) and the flat parameters.
     save=False -> (out, None, None); save=True -> (out, o, lse2), the attention
-    output [B, S, 16] and the softmax statistic [B, S, 8] for the backward."""
+    output [B, S, 16] and the softmax statistic [B, S, 8] for the backward, both
+    float32; out is in x's dtype."""
     b, s, slot_minor = _check_x(x, flat)
     rpt, threads = tile_geometry(s)
     out = torch.empty((b, s, EMB), device=x.device, dtype=x.dtype)
-    o = torch.empty_like(out) if save else None
-    stats = torch.empty((b, s, HEADS), device=x.device, dtype=x.dtype) if save else None
+    f32 = dict(device=x.device, dtype=torch.float32)
+    o = torch.empty((b, s, EMB), **f32) if save else None
+    stats = torch.empty((b, s, HEADS), **f32) if save else None
     lib = build.load_library("transformer_body")
-    build.check(lib.nasrec_body_fwd(
+    sfx = dtype_suffix(x.dtype)
+    build.check(getattr(lib, f"nasrec_body_fwd{sfx}")(
         x.data_ptr(), flat.data_ptr(), out.data_ptr(),
         o.data_ptr() if save else None, stats.data_ptr() if save else None,
         b, s, rpt, threads, int(slot_minor), LN_EPS, build.current_stream()),
         "transformer_body fwd")
-    LAUNCHES[f"fwd_train_s{s}" if save else f"fwd_s{s}"] += 1
+    LAUNCHES[(f"fwd_train_s{s}" if save else f"fwd_s{s}") + sfx] += 1
     return out, o, stats
 
 
 def transformer_body_bwd_kernel(x, dout, o, stats, flat):
     """Launch the backward kernel -> (dx, dflat [1696]); dx has x's shape
-    [B, S, 16] and x's layout."""
+    [B, S, 16], x's layout and x's dtype, dflat is float32."""
     b, s, slot_minor = _check_x(x, flat)
-    for t, what in ((dout, "dout"), (o, "o")):
-        check_f32_cuda(t, f"transformer_body backward ({what})", (b, s, EMB))
-    check_f32_cuda(stats, "transformer_body backward (statistics)", (b, s, HEADS))
+    check_cuda(dout, "transformer_body backward (dout)", (b, s, EMB), x.dtype)
+    check_cuda(o, "transformer_body backward (o)", (b, s, EMB), torch.float32)
+    check_cuda(stats, "transformer_body backward (statistics)", (b, s, HEADS), torch.float32)
     rpt, threads = tile_geometry(s)
     nblocks = min(-(-b // rpt), NUM_SMS * BWD_BLOCKS_PER_SM)
     dx = torch.empty_like(x.transpose(1, 2) if slot_minor else x)
-    partial = torch.empty((nblocks, NUM_PARAM_FLOATS), device=x.device, dtype=x.dtype)
+    partial = torch.empty((nblocks, NUM_PARAM_FLOATS), device=x.device, dtype=torch.float32)
     dflat = torch.empty_like(flat)
     lib = build.load_library("transformer_body")
-    build.check(lib.nasrec_body_bwd(
+    sfx = dtype_suffix(x.dtype)
+    build.check(getattr(lib, f"nasrec_body_bwd{sfx}")(
         x.data_ptr(), dout.data_ptr(), o.data_ptr(), stats.data_ptr(), flat.data_ptr(),
         dx.data_ptr(), partial.data_ptr(), dflat.data_ptr(), b, s, rpt, threads, nblocks,
         int(slot_minor), LN_EPS, build.current_stream()), "transformer_body bwd")
-    LAUNCHES[f"bwd_s{s}"] += 1
+    LAUNCHES[f"bwd_s{s}{sfx}"] += 1
     return (dx.transpose(1, 2) if slot_minor else dx), dflat
 
 

@@ -11,7 +11,10 @@ In supernet mode a `sampler` gives every train step its masks, and
 modes.  `make_train_step` is the step every optimizer runs (SGD, Adam, or
 Adagrad with wd > 0): autograd through the whole model, the table included,
 whose gradient is dense; the sparse-embedding step
-(train/sparse_embedding.py) is the Adagrad, wd = 0 special case.
+(train/sparse_embedding.py) is the Adagrad, wd = 0 special case.  Both steps
+and the eval step take `compute_dtype`, the activations' dtype (float32 or
+bfloat16, the JAX package's rule: ops/common.py); the parameters, gradients,
+optimizer state, loss and metrics stay float32, and there is no loss scaling.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ def make_train_step(
     impl: str = "auto",
     has_masks: bool = False,
     trainable: Optional[Mapping[str, bool]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in
     place: BCE plus `l2_reg` times the squared norm of every parameter with
@@ -119,9 +123,9 @@ def make_train_step(
         idx = model.embedding.fused_index(cat)
         stem = table.index_select(0, idx.reshape(-1)).reshape(idx.shape[0], -1)
         if has_masks:
-            logits = model.forward_embedded(dense, stem, masks, impl)
+            logits = model.forward_embedded(dense, stem, masks, impl, compute_dtype)
         else:
-            logits = model.forward_embedded(dense, stem, impl)
+            logits = model.forward_embedded(dense, stem, impl, compute_dtype)
         bce = bce_with_logits(logits, y)
         l2 = l2_penalty(leaves, l2_reg, l2_exclude)
         live = [i for i, (n, _) in enumerate(leaves) if trainable is None or trainable[n]]
@@ -153,14 +157,15 @@ def snapshot_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
 
 
-def make_eval_step(impl: str = "auto", has_masks: bool = False) -> Callable:
-    """eval_step(model, dense, cat[, masks]) -> logits, without autograd."""
+def make_eval_step(impl: str = "auto", has_masks: bool = False,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """eval_step(model, dense, cat[, masks]) -> float32 logits, without autograd."""
 
     @torch.no_grad()
     def eval_step(model, dense, cat, masks=None):
         if has_masks:
-            return model(dense, cat, masks, impl)
-        return model(dense, cat, impl)
+            return model(dense, cat, masks, impl, compute_dtype)
+        return model(dense, cat, impl, compute_dtype)
 
     return eval_step
 

@@ -106,6 +106,7 @@ def make_sparse_embedding_train_step(
     has_masks: bool = False,
     trainable: Optional[Mapping[str, bool]] = None,
     microbatch: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
@@ -122,7 +123,11 @@ def make_sparse_embedding_train_step(
     the full batch: the other parameters' gradients are averaged before the
     clip, and the stem gradients of all slices are concatenated, so that
     duplicate rows are summed across the whole batch before squaring, in one
-    segment-sum and one table update a step.  B must divide by m."""
+    segment-sum and one table update a step.  B must divide by m.
+
+    `compute_dtype` is the activations' dtype (train/loop.py); the stem's
+    gradient comes back through the model's cast as float32, so the
+    segment-sum, the clip and the table update stay float32."""
     optimizer = optimizer or make_optimizer("adagrad")
 
     def step(state: TrainState, dense, cat, y, masks=None):
@@ -147,9 +152,9 @@ def make_sparse_embedding_train_step(
                 looked = table.index_select(0, idx[sl].reshape(-1))  # [b*S, E]
             stem = looked.reshape(looked.shape[0] // s, -1).requires_grad_(train_table)
             if has_masks:
-                logits = model.forward_embedded(dense[sl], stem, masks, impl)
+                logits = model.forward_embedded(dense[sl], stem, masks, impl, compute_dtype)
             else:
-                logits = model.forward_embedded(dense[sl], stem, impl)
+                logits = model.forward_embedded(dense[sl], stem, impl, compute_dtype)
             bce = bce_with_logits(logits, y[sl])
             l2 = l2_penalty(named, l2_reg, l2_exclude)
             # A block whose outputs no later block reads leaves its parameters

@@ -7,15 +7,18 @@ Ported: data from TSV shards (the C++ parser, a prefetch thread and a copy to
 the card on a side stream, data/pipeline.py) or synthetic; the
 sparse-embedding step (Adagrad with wd = 0, micro-batches, any optimizer for
 the other parameters with sparse_embedding=True) and the dense-gradient step
-(SGD, Adam, or Adagrad with wd > 0), each on one device; supernet training
+(SGD, Adam, or Adagrad with wd > 0), each on one device, in float32 or
+bfloat16 compute (`compute_dtype`: the model's activations in bf16, the
+parameters, table, optimizer state and logits in f32); supernet training
 with every path-sampling strategy, resume from a checkpoint (any optimizer's
 state), evo-2shot candidates, a pretrained table and both eval paths; random
 search, regularized evolution and the re-scoring of a given candidate list,
 in the three fine-tune modes; checkpoints (pickle, in the JAX package's
 layout, so each package loads the other's) and `metrics.jsonl`.  Not yet
 ported, and rejected up front with an error that says so: the mesh branch,
-the host-offload branch, orbax checkpoints, bf16 compute, and the search's
-latency criterion with beta != 0 (it needs the profiling layer).
+the host-offload branch, orbax checkpoints, and the search's latency
+criterion with beta != 0 (it needs the profiling layer).  The search, as in
+the JAX package, runs in float32.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import os
 import pickle
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+import torch
 
 from nasrec_tpu_torch.choices import Choice, choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
@@ -98,6 +103,8 @@ class TrainOptions:
     seed: int = 0
     logging_dir: Optional[str] = None
     mesh_model: int = 0
+    # "bfloat16" (or "bf16") runs the model's activations in bf16; the
+    # parameters, table, optimizer state and logits stay float32.
     compute_dtype: str = "float32"
     place_embedding_on_cpu: bool = False
     ckpt_backend: str = "pickle"
@@ -125,6 +132,19 @@ def _validate_data(data: DataOptions) -> None:
                          "that holds shard-*/")
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def _compute_dtype(train: TrainOptions) -> torch.dtype:
+    """The activations' dtype of `train.compute_dtype` (as
+    `nasrec_tpu/workloads.py :: _compute_dtype`)."""
+    try:
+        return COMPUTE_DTYPES[train.compute_dtype]
+    except KeyError:
+        raise ValueError(f"unknown compute_dtype {train.compute_dtype!r}: one of "
+                         f"{', '.join(COMPUTE_DTYPES)}") from None
+
+
 def _use_sparse_embedding(train: TrainOptions) -> bool:
     if isinstance(train.sparse_embedding, bool):
         return train.sparse_embedding
@@ -138,8 +158,7 @@ def _validate(data: DataOptions, train: TrainOptions) -> None:
         raise _not_ported("the host-offload branch (--place_embedding_on_cpu)")
     if train.ckpt_backend == "orbax":
         raise _not_ported("orbax checkpoints (--ckpt_backend orbax)")
-    if train.compute_dtype != "float32":
-        raise _not_ported("bf16 compute (--compute_dtype bfloat16)")
+    _compute_dtype(train)
     if train.micro_batches < 1:
         raise ValueError(f"micro_batches must be at least 1, got {train.micro_batches}")
     if train.micro_batches > 1 and not _use_sparse_embedding(train):
@@ -210,7 +229,7 @@ def _make_step(train: TrainOptions, sched, **kw):
     `_use_sparse_embedding`, with its fresh state's optimizer."""
     opt = make_optimizer(train.optimizer)
     common = dict(grad_clip=train.grad_clip, l2_reg=train.wd,
-                  l2_exclude=train.no_reg_param_name, **kw)
+                  l2_exclude=train.no_reg_param_name, compute_dtype=_compute_dtype(train), **kw)
     if _use_sparse_embedding(train):
         return opt, make_sparse_embedding_train_step(
             sched, optimizer=opt, microbatch=train.micro_batches, **common)
@@ -258,7 +277,7 @@ def train_fixed_subnet(
                          "(adagrad, wd=0 or sparse_embedding=True)")
     opt, step = _make_step(train, sched)
     state = _init_state(model, opt, train)
-    eval_step = make_eval_step()
+    eval_step = make_eval_step(compute_dtype=_compute_dtype(train))
     train_iter, test_iter = _make_iterators(data, device)
 
     writer = MetricsWriter(train.logging_dir)
@@ -353,7 +372,7 @@ def train_supernet(
         log_fn(f"resumed from {sn.checkpoint_path} at step {start_step}")
     state.step = start_step
 
-    eval_step = make_eval_step(has_masks=True)
+    eval_step = make_eval_step(has_masks=True, compute_dtype=_compute_dtype(train))
     candidates = None
     if sn.evo_2shot_candidates_path:
         with open(sn.evo_2shot_candidates_path, "rb") as f:

@@ -523,3 +523,193 @@ def test_micro_batched_step_updates_the_table_once(dev):
         assert (sd_1[name] - sd_2[name]).abs().max().item() <= 1e-4, name
         a_1, a_2 = states[0].opt_state[name], states[1].opt_state[name]
         assert (a_1 - a_2).abs().max().item() <= 1e-4, name
+
+
+# bf16 (activations in bf16, f32 inside the kernels): each kernel output is
+# one rounding of an f32 value, as in its plain version, so outputs are held
+# to one bf16 unit in the last place elementwise, or to 1e-6 of the largest
+# element where an f32 sum cancelled far below its terms (the two sums then
+# differ by their own f32 rounding, which is several ulps of so small a
+# value); the body's f32 parameter gradients to 1e-3 of the largest element.
+
+
+def _within_bf16_ulp(got, want, what):
+    assert got.dtype == want.dtype == torch.bfloat16, what
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    floor = 1e-6 * want.float().abs().max().item()
+    ok = ((ordered(got) - ordered(want)).abs() <= 1) | ((got.float() - want.float()).abs() <= floor)
+    assert bool(ok.all()), f"{what}: {int((~ok).sum())} elements beyond one bf16 ulp"
+
+
+@pytest.mark.parametrize("batch,n", [(1, 2), (5, 3), (33, 9), (37, 17), (13, 46), (1000, 46),
+                                     (1001, 40), (0, 5)])
+def test_dot_scores_tril_bf16_kernel_matches_plain(dev, batch, n):
+    gen = torch.Generator(device=dev).manual_seed(batch * 100 + n)
+    x = torch.randn(batch, 16, device=dev, generator=gen).bfloat16()
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen).bfloat16()
+    dz = torch.randn(batch, dotprod.tril_size(n), device=dev, generator=gen).bfloat16()
+
+    def run(impl):
+        xs, ys = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+        z = dotprod.dot_scores_tril(xs, ys, impl=impl)
+        z.backward(dz)
+        return z.detach(), xs.grad, ys.grad
+
+    before = dict(dotprod.LAUNCHES)
+    zk, dxk, dyk = run("auto")
+    z2, dx2, dy2 = run("auto")
+    zp, dxp, dyp = run("plain")
+    torch.cuda.synchronize()
+    for key in (f"fwd_n{n}_bf16", f"bwd_n{n}_bf16"):
+        assert dotprod.LAUNCHES[key] == before.get(key, 0) + 2, key
+    assert dotprod.LAUNCHES[f"fwd_n{n}"] == before.get(f"fwd_n{n}", 0)
+    for got, want, what in ((zk, zp, "z"), (dxk, dxp, "dx"), (dyk, dyp, "dyt")):
+        if batch:
+            _within_bf16_ulp(got, want, what)
+    assert torch.equal(zk, z2) and torch.equal(dxk, dx2) and torch.equal(dyk, dy2)
+
+
+def test_dot_scores_tril_bf16_kernel_takes_dz_at_any_offset(dev):
+    """A dz row tile starts on any 2-byte boundary: a view one element into
+    a larger tensor."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, batch = 9, 301
+    x = torch.randn(batch, 16, device=dev, generator=gen).bfloat16()
+    yt = torch.randn(batch, 16, n - 1, device=dev, generator=gen).bfloat16()
+    big = torch.randn(batch * dotprod.tril_size(n) + 1, device=dev, generator=gen).bfloat16()
+    dz = big[1:].view(batch, dotprod.tril_size(n))
+    dxk, dyk = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+    xs, ys = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+    dxp, dyp = torch.autograd.grad(dotprod.dot_scores_tril_plain(xs, ys), [xs, ys], dz)
+    _within_bf16_ulp(dxk, dxp, "dx")
+    _within_bf16_ulp(dyk, dyp, "dyt")
+
+
+def _body_case_bf16(dev, batch, slots, seed, layout):
+    x, params, dout = _body_case(dev, batch, slots, seed, layout)
+    xb = x.bfloat16()
+    if layout == "slot_minor":
+        xb = xb.transpose(1, 2).contiguous().transpose(1, 2)
+    # The ReLU-edge rows of the bf16 input (the kernel and the plain version
+    # both compute from it in f32).
+    _, _, edge = _body_case_from(xb.float(), params, dout)
+    return xb, params, edge.bfloat16()
+
+
+def _body_case_from(x, params, dout):
+    dout = dout.clone()
+    with torch.no_grad():
+        w_in, b_in, w_out, b_out, g1, h1, fc1w, fc1b = params[:8]
+        o = attention.tiny_head_attention_plain(F.linear(x, w_in, b_in))
+        x4 = F.layer_norm(F.linear(o, w_out, b_out) + x, (16,), g1, h1, 1e-5)
+        dout[(F.linear(x4, fc1w, fc1b).abs() < 1e-5).flatten(1).any(1)] = 0.0
+    return x, params, dout
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "slot_minor"])
+@pytest.mark.parametrize("slots", [16, 48, 64])
+@pytest.mark.parametrize("batch", [1, 37, 2048])
+def test_transformer_body_bf16_kernel_matches_plain(dev, batch, slots, layout):
+    x, params, dout = _body_case_bf16(dev, batch, slots, batch * 10 + slots, layout)
+    before = dict(transformer_body.LAUNCHES)
+    with torch.no_grad():
+        out_eval = transformer_body.transformer_body(x, params)
+    out_k, dx_k, dp_k = _body_grads(x, params, dout, "auto")
+    out_p, dx_p, dp_p = _body_grads(x, params, dout, "plain")
+    _, dx_2, dp_2 = _body_grads(x, params, dout, "auto")
+    torch.cuda.synchronize()
+    for key in (f"fwd_s{slots}_bf16", f"fwd_train_s{slots}_bf16", f"bwd_s{slots}_bf16"):
+        assert transformer_body.LAUNCHES[key] > before.get(key, 0), key
+    assert out_k.dtype == dx_k.dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in dp_k)
+    assert torch.equal(out_eval, out_k) and dx_k.stride() == x.stride()
+    _within_bf16_ulp(out_k, out_p, "out")
+    _within_bf16_ulp(dx_k, dx_p, "dx")
+    for name, gk, gp in zip(transformer_body.PARAM_NAMES, dp_k, dp_p):
+        assert (gk - gp).abs().max().item() <= 1e-3 * max(1e-6, gp.abs().max().item()), name
+    assert torch.equal(dx_k, dx_2) and all(torch.equal(a, b) for a, b in zip(dp_k, dp_2))
+
+
+def test_transformer_body_bf16_kernel_saves_f32_residuals(dev):
+    x, params, _ = _body_case_bf16(dev, 37, 48, 3, "slot_minor")
+    flat = transformer_body.flatten_params(params)
+    out, o, lse2 = transformer_body.transformer_body_fwd_kernel(x, flat, save=True)
+    qkv = F.linear(x.float(), params[0], params[1])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and o.dtype == lse2.dtype == torch.float32
+    torch.testing.assert_close(o, attention.tiny_head_attention_plain(qkv), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse2, attention.softmax_lse2(qkv), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,slots", [(1, 16), (37, 48), (2048, 64), (3, 128)])
+def test_tiny_head_attention_bf16_kernel_matches_plain(dev, batch, slots):
+    gen = torch.Generator(device=dev).manual_seed(batch + slots)
+    qkv = torch.randn(batch, slots, 48, device=dev, generator=gen).bfloat16()
+    do = torch.randn(batch, slots, 16, device=dev, generator=gen).bfloat16()
+    before = dict(attention.LAUNCHES)
+    qk = qkv.clone().requires_grad_(True)
+    ok = attention.tiny_head_attention(qk)
+    ok.backward(do)
+    qp = qkv.clone().requires_grad_(True)
+    op = attention.tiny_head_attention(qp, impl="plain")
+    op.backward(do)
+    torch.cuda.synchronize()
+    for key in (f"fwd_s{slots}_bf16", f"bwd_s{slots}_bf16"):
+        assert attention.LAUNCHES[key] == before.get(key, 0) + 1, key
+    _within_bf16_ulp(ok, op, "o")
+    _within_bf16_ulp(qk.grad, qp.grad, "dqkv")
+
+
+def test_bf16_kernels_refuse_mixed_operands(dev):
+    xd = torch.zeros(4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dotprod.dot_scores_tril_fwd_kernel(xd, torch.zeros(4, 16, 7, device=dev))
+    with pytest.raises(ValueError, match="bfloat16"):
+        dotprod.dot_scores_tril_fwd_kernel(xd.half(), torch.zeros(4, 16, 7, device=dev).half())
+    x, params, _ = _body_case_bf16(dev, 4, 16, 0, "contiguous")
+    flat = transformer_body.flatten_params(params)
+    out, o, lse2 = transformer_body.transformer_body_fwd_kernel(x, flat, save=True)
+    with pytest.raises(ValueError, match="float32"):          # o must stay f32
+        transformer_body.transformer_body_bwd_kernel(x, out, o.bfloat16(), lse2, flat)
+    with pytest.raises(ValueError, match="bfloat16"):         # dout in x's dtype
+        transformer_body.transformer_body_bwd_kernel(x, out.float(), o, lse2, flat)
+    with pytest.raises(ValueError, match="float32"):          # the table stays f32
+        table = torch.zeros(10, 16, device=dev, dtype=torch.bfloat16)
+        table_update.table_update(table, table.clone(), torch.zeros(3, dtype=torch.int32,
+                                                                      device=dev),
+                                  torch.zeros(3, 16, device=dev, dtype=torch.bfloat16), 0.1)
+
+
+def test_bf16_xlarge_step_launches_the_bf16_kernels(dev):
+    """One sparse xlarge step with compute_dtype bf16: the body and
+    dot-product kernels launch in bf16, the table update in f32; the
+    parameters and accumulators stay f32 and match the plain step's."""
+    import copy
+
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model_k, batch = _fixed_case(dev, 2048)
+    model_p = copy.deepcopy(model_k)
+    losses = []
+    for model, impl in ((model_k, "auto"), (model_p, "plain")):
+        step = make_sparse_embedding_train_step(lambda s: 0.05, impl=impl,
+                                                compute_dtype=torch.bfloat16)
+        before = _launches()
+        state, m = step(init_sparse_train_state(model), *batch)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        want = ({**{k + "_bf16": 1 for k in XLARGE_STEP}, "table_update": 1} if impl == "auto"
+                else {})
+        assert _launched(before) == want
+        assert m["logits"].dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in model_k.parameters())
+    # One bf16 step from the same weights: the two paths round the same f32
+    # values, so the loss agrees to a bf16 ulp of the logits' effect.
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])

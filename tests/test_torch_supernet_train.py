@@ -304,9 +304,17 @@ def test_train_supernet_options(tmp_path):
     with pytest.raises(ValueError, match="scatter"):
         train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, "table_update": "sweep"}))
     for field, value in (("mesh_model", 2), ("place_embedding_on_cpu", True),
-                         ("ckpt_backend", "orbax"), ("compute_dtype", "bfloat16")):
+                         ("ckpt_backend", "orbax")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, field: value}))
+    # bf16 compute trains: the step is taken, the parameters stay float32.
+    bf16 = train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__,
+                                                       "compute_dtype": "bfloat16"}),
+                             log_fn=lambda s: None)
+    assert bf16["state"].step == 1 and np.isfinite(bf16["logs"][0]["train_loss"]).all()
+    assert all(p.dtype == torch.float32 for p in bf16["state"].model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, "compute_dtype": "fp16"}))
 
 
 def test_train_supernet_micro_batches_train_as_one_slice():

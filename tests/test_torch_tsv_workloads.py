@@ -5,6 +5,14 @@ files, and checkpoints with SGD and Adam state across the two packages.
 batch 64, the test split's last batch short) from the JAX package's initial
 weights, through the sparse step (Adagrad) and the dense step (Adam): the
 train loss of every step and the test metrics within rtol 1e-4 / atol 1e-5.
+
+At lr 1e-3 Adam diverges on these shards in both packages (train loss 28.5,
+14.2, 951), and f32 rounding grows about 25 times a step along the way (2e-7,
+5.4e-6, 1.3e-4 between the packages' losses).  One step from the same
+parameters and Adam state agrees to f32 rounding (the third: loss 6.4e-8
+apart, parameters 5.6e-8, moments 7e-7 of their largest), so each dense
+step of the port starts from the JAX run's state before that step: the
+comparison holds the update, not the divergence's amplification of rounding.
 """
 
 import jax
@@ -66,6 +74,36 @@ def test_train_fixed_subnet_on_tsv_matches_jax(tsv_root, monkeypatch, optimizer,
 
     real_init = workloads.fixed_init
     monkeypatch.setattr(workloads, "fixed_init", from_jax_init)
+    # The dense step (Adam): the JAX run's state before each step, and the
+    # state after its last, on the host.
+    jax_states = []
+
+    def jax_recording_step(*args, **kwargs):
+        jstep = real_jax_step(*args, **kwargs)
+
+        def step(state, *batch):
+            jax_states.append(jax.device_get(state))
+            new, metrics = jstep(state, *batch)
+            jax_states.append(jax.device_get(new))
+            return new, metrics
+
+        return step
+
+    def port_step_from_jax_state(*args, **kwargs):
+        tstep = real_port_step(*args, **kwargs)
+
+        def step(state, *batch):
+            start = jax_states[2 * state.step]
+            assert int(start.step) == state.step
+            state.model.load_state_dict(from_jax_params(start.params, state.model.plan))
+            state.opt_state = from_jax_opt_state(start.opt_state, state.model.plan)
+            return tstep(state, *batch)
+
+        return step
+
+    real_jax_step, real_port_step = jax_workloads.make_train_step, workloads.make_train_step
+    monkeypatch.setattr(jax_workloads, "make_train_step", jax_recording_step)
+    monkeypatch.setattr(workloads, "make_train_step", port_step_from_jax_state)
     kw = dict(learning_rate=lr, optimizer=optimizer)
     want = jax_workloads.train_fixed_subnet(payload, *_options(jax_workloads, tsv_root, **kw),
                                             log_fn=lambda s: None)["logs"][0]
@@ -75,10 +113,21 @@ def test_train_fixed_subnet_on_tsv_matches_jax(tsv_root, monkeypatch, optimizer,
     assert got["state"].step == 3
     sparse = optimizer == "adagrad"
     assert isinstance(got["state"].opt_state, AdamState) != sparse
+    assert len(jax_states) == (0 if sparse else 6)
     logs = got["logs"][0]
     assert len(logs["train_loss"]) == 3 and len(logs["test_loss"]) == 2
     for key in ("train_loss", "test_loss", "test_AUROC", "test_Accuracy"):
         np.testing.assert_allclose(logs[key], want[key], err_msg=key, **TOL)
+    if not sparse:      # the last step's update, from the JAX state before it
+        plan = got["state"].model.plan
+        want_p = from_jax_params(jax_states[-1].params, plan)
+        want_s = from_jax_opt_state(jax_states[-1].opt_state, plan)
+        for name, t in got["state"].model.state_dict().items():
+            np.testing.assert_allclose(t.numpy(), want_p[name].numpy(), err_msg=name, **TOL)
+        for got_slot, want_slot in zip(slot_dicts(got["state"].opt_state), slot_dicts(want_s)):
+            for name, t in want_slot.items():
+                np.testing.assert_allclose(got_slot[name].numpy(), t.numpy(), err_msg=name,
+                                           **TOL)
 
 
 def test_tsv_epoch_ends_with_the_stream(tsv_root):
