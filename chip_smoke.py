@@ -116,6 +116,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
               the first 8 records of the proxy's results.pickle; then
               nasrec_tpu_torch.cli.eval_subnet_from_scratch with 2 xlarge
               subnets at batch 512.  Every loss finite, every file written.
+  9. profiling  profiling.calibrate_chip() at its defaults (bf16 4096^2
+              products and an f32 copy of 512 MiB): TFLOP/s and GB/s, and each
+              as a share of 989 TFLOP/s and of the card's HBM rate; the
+              criteo-kaggle/xlarge best arch's forward at batch 512 over the
+              search-capped table (3,069,317 rows): measure_latency through
+              the kernels and through the plain versions, dot_flops of both
+              (must be equal), the cost model's estimate; the search CLI with
+              --criterion test_loss_penalty_lat --beta 0.5 and that kernel
+              latency as --target_latency on phase 5's checkpoint (its
+              synthetic tables, 1000 rows a slot), once per latency estimator:
+              a regularized EA of 8 initial candidates and one generation of 8
+              children, 5 fine-tune steps and 1 test batch a candidate; each
+              candidate's cost-model estimate, measured latency and loss, and
+              the Spearman correlation of the two latencies (a finding, not a
+              gate); the launches inside measure_latency in the measured mode
+              (the dot-product and body forward kernels must be among them),
+              none in the cost-model mode; the evaluator's launches as phase
+              8 counts them; tools.body_device_check and
+              tools.sweep_device_check (each must print its OK line); then
+              main_train --report_flops 1 --profile_dir for 3 xlarge steps at
+              batch 512 (a FLOPS line and a trace file).  Launches at a batch-512
+              shape without a row get one: its kernel checked against the
+              plain version at that shape and timed.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -126,6 +149,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -284,6 +308,15 @@ PROXY_DIR = ROOT / "experiments" / "search_quality_proxy"
 RANK_CANDIDATES = 24              # the EA's initial population, records 0-23
 RANK_STEPS, RANK_EVAL_STEPS = 200, 24
 RANK_MIN_SPEARMAN = 0.7
+# Phase 9 (profiling): the latency-aware search CLI at the canonical search
+# configuration on phase 5's checkpoint, once per latency estimator: a
+# regularized EA cut to 8 initial candidates and one generation of 8 children,
+# 5 fine-tune steps and 1 test batch a candidate, beta 0.5, the latency batch
+# 512; then 3 xlarge steps of main_train with --report_flops and --profile_dir.
+PROF_EA = dict(init_population=8, n_generations=1, n_childs=8, sample_size=4, ea_top_k=2)
+PROF_CANDIDATES = PROF_EA["init_population"] + PROF_EA["n_generations"] * PROF_EA["n_childs"]
+PROF_STEPS, PROF_BETA, PROF_TRAIN_STEPS = 5, 0.5, 3
+BF16_PEAK = 989e12       # H100 SXM dense bf16 (data sheet)
 
 
 def emit(obj) -> None:
@@ -478,21 +511,32 @@ ATTN_REPLACES = "nasrec_tpu/ops/kernels/attention_pallas.py:166"
 
 def attention_flops(slots: int) -> tuple:
     """(forward, backward) operations of the attention core for one position:
-    8 heads x S keys.  Forward: score 3, subtract the max 1, exp 1, row sum 1,
-    p v 4.  Backward from saved statistics, each (query, key) pair once:
-    score 3, subtract 1, exp 1, times 1/sum 1, dp 3, ds 2, dq 4, dk 4, dv 4.
-    An exp counts as one operation here, and also in the bound's own term for
-    exponentials: 8 * S of them a position each way (`kernel_row`)."""
-    return 8 * slots * 10, 8 * slots * 23
+    8 heads x S keys.  The products q.k and p.v are `attention.matmul_flops`
+    of one batch row over its S positions (2 a multiply-add, 8 a (query, key)
+    pair of a head: the count that profiling.dot_flops reports for the
+    kernel).  Beside them, forward:
+    subtract the max, exp, row sum (3 a pair).  Backward from the saved
+    statistics: the products of the plain version's gradients (twice the
+    forward's), the scores recomputed (half the forward's products), and
+    subtract, exp, times 1/sum, ds 2 (5 a pair).  An exp counts as one
+    operation here, and also in the bound's own term for exponentials: 8 * S
+    of them a position each way (`kernel_row`)."""
+    from nasrec_tpu_torch.ops.kernels import attention
+
+    mm = attention.matmul_flops(1, slots) // slots
+    return mm + 8 * slots * 3, 2 * mm + mm // 2 + 8 * slots * 5
 
 
 def body_flops(slots: int) -> tuple:
     """(forward, backward) operations of the transformer body for one position.
-    Forward: the four feature linears 2*16*(48+16+16+16), the attention core,
+    Forward: the four feature linears (`transformer_body.matmul_flops` less
+    the attention core's products: 2*16*(48+16+16+16)), the attention core,
     two LayerNorms and residuals (about 230).  Backward: the linears again,
     their transposes and their weight gradients (3x), the attention backward,
     and both LayerNorms forward and backward (about 500)."""
-    lin = 2 * 16 * (48 + 16 + 16 + 16)
+    from nasrec_tpu_torch.ops.kernels import attention, transformer_body
+
+    lin = (transformer_body.matmul_flops(1, slots) - attention.matmul_flops(1, slots)) // slots
     fwd, bwd = attention_flops(slots)
     return lin + fwd + 230, 3 * lin + bwd + 500
 
@@ -2024,6 +2068,221 @@ def timed_steps(fn, n: int) -> tuple:
     return times, launches
 
 
+def join_launches(rows_out, launches: dict, batch: int, hbm, gen) -> None:
+    """Launches counted at one batch into the rows "<kernel>_<shape>_b<batch>";
+    a row that does not exist yet is made first, its kernel checked against the
+    plain version at that shape and timed (`check_dot_scores`,
+    `check_transformer_body`)."""
+    suffix = f"_b{batch}"
+    for name, count in launches.items():
+        row = name + suffix
+        if row not in rows_out:
+            dot = re.fullmatch(r"dot_scores_tril_(fwd|bwd)_n(\d+)", name)
+            body = re.fullmatch(r"transformer_body_(fwd|fwd_train|bwd)_s(\d+)", name)
+            if dot:
+                check_dot_scores(int(dot[2]), hbm, gen, rows_out, batch, suffix, (dot[1],))
+            elif body:
+                check_transformer_body(int(body[2]), hbm, gen, rows_out, batch, suffix,
+                                       (body[1],), True)
+            else:
+                raise SystemExit(f"no row for the launches of {row}")
+        rows_out[row]["launches"] = rows_out[row].get("launches", 0) + count
+
+
+def launch_diff(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def phase_profiling(ckpt: Path, tmp: Path, rows_out, hbm) -> None:
+    """The profiling layer and the latency-aware search (see the module
+    docstring, phase 9)."""
+    import contextlib
+    import io
+    import pickle
+
+    import torch
+
+    from nasrec_tpu_torch import profiling, workloads
+    from nasrec_tpu_torch.cli import eval_subnet_from_supernet, main_train
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_apply, fixed_init
+    from nasrec_tpu_torch.tools import body_device_check, sweep_device_check
+
+    t_phase = time.perf_counter()
+    dev, meta = torch.device(DEVICE), torch.device("meta")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    # The chip's peaks at the JAX package's defaults (4096, 512 MiB, 20).
+    t0 = time.perf_counter()
+    calib = profiling.calibrate_chip(device=DEVICE)
+    emit({"phase": "profiling", "step": "calibrate_chip", "allow_tf32": False,
+          "matmul_tflops_bf16": calib["matmul_flops_per_s"] / 1e12,
+          "matmul_share_of_989_tflops": calib["matmul_flops_per_s"] / BF16_PEAK,
+          "copy_gb_per_s": calib["copy_bytes_per_s"] / 1e9,
+          "copy_share_of_hbm": calib["copy_bytes_per_s"] / hbm,
+          "seconds": time.perf_counter() - t0})
+
+    # The xlarge best arch's forward at batch 512 over the search-capped table:
+    # measured through the kernels and through the plain versions, counted.
+    plan = xlarge_plan(DATASETS["criteo-kaggle"].vocab_sizes(SN_VOCAB_CAP))
+    model = fixed_init(plan, 0, dev)
+    dense = torch.zeros(SN_BATCH, 13, device=dev)
+    cat = torch.zeros(SN_BATCH, 26, dtype=torch.int32, device=dev)
+
+    def forward(m, d, c, impl):
+        with torch.no_grad():
+            return fixed_apply(m, d, c, impl=impl)
+
+    latency, fallbacks = {}, profiling.timing_fallbacks()
+    for impl in ("kernel", "plain"):
+        reset_launches()
+        latency[impl] = profiling.measure_latency(forward, (model, dense, cat, impl))
+        if impl == "kernel":
+            forward_launches = read_launches()
+    fallbacks = profiling.timing_fallbacks() - fallbacks
+    flops = {impl: profiling.dot_flops(forward, model, dense, cat, impl)
+             for impl in ("kernel", "plain")}
+    estimate = profiling.estimate_latency_cost_model(
+        lambda m, d, c: forward(m, d, c, "plain"),
+        (fixed_init(plan, 0, meta), dense.to(meta), cat.to(meta)), calib)
+    del model
+    torch.cuda.empty_cache()
+    join_launches(rows_out, forward_launches, SN_BATCH, hbm, gen)
+    emit({"phase": "profiling", "step": "xlarge_forward_b512",
+          "latency_ms_kernel": [v * 1e3 for v in latency["kernel"]],
+          "latency_ms_plain": [v * 1e3 for v in latency["plain"]],
+          "timing_fallbacks": fallbacks, "cost_model_ms": estimate * 1e3,
+          "dot_flops_kernel": flops["kernel"], "dot_flops_plain": flops["plain"],
+          "launches": forward_launches})
+
+    # The search CLI with the latency criterion, once per estimator; the
+    # launches inside measure_latency counted apart from the evaluator's.
+    base = ["--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
+            "--num_blocks", str(SN_BLOCKS), "--ckpt_path", str(ckpt),
+            "--method", "regularized-ea", "--group_size", str(SEARCH_GROUP),
+            "--max_train_steps", str(PROF_STEPS), "--max_eval_steps", "1",
+            "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SEARCH_TEST_BATCH),
+            "--criterion", "test_loss_penalty_lat", "--beta", str(PROF_BETA),
+            "--target_latency", repr(latency["kernel"][0]),
+            "--latency_batch_size", str(SN_BATCH)]
+    for k, v in PROF_EA.items():
+        base += [f"--{k}", str(v)]
+    inside, real_measure = [], profiling.measure_latency
+
+    def counted_measure(*a, **kw):
+        before = read_launches()
+        out = real_measure(*a, **kw)
+        inside.append(launch_diff(read_launches(), before))
+        return out
+
+    runs, groups = {}, PROF_CANDIDATES // SEARCH_GROUP
+    chunks = SEARCH_TEST_BATCH // SEARCH_CHUNK
+    evaluator_want = {k: v * groups * (PROF_STEPS + chunks) for k, v in SEARCH_STEP_LAUNCHES.items()}
+    profiling.measure_latency = counted_measure
+    try:
+        for est in ("cost-model", "measured"):
+            inside.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            eval_subnet_from_supernet.main(base + ["--latency_estimator", est,
+                                                   "--logging_dir", str(tmp / f"lat_{est}")])
+            seconds = time.perf_counter() - t0
+            total = read_launches()
+            timed = {}
+            for d in inside:
+                for k, v in d.items():
+                    timed[k] = timed.get(k, 0) + v
+            with open(tmp / f"lat_{est}" / "all_results.pickle", "rb") as f:
+                runs[est] = dict(results=pickle.load(f), seconds=seconds, timed=timed,
+                                 evaluator=launch_diff(total, timed))
+    finally:
+        profiling.measure_latency = real_measure
+    measured = runs["measured"]
+    # The evaluator's group steps run at batch 512, its eval chunks at 1024.
+    for run in runs.values():
+        if run["evaluator"] == evaluator_want:
+            for kernel, per_step in SEARCH_STEP_LAUNCHES.items():
+                for batch, n in ((SN_BATCH, PROF_STEPS), (SEARCH_CHUNK, chunks)):
+                    row = f"{kernel}_b{batch}"
+                    rows_out[row]["launches"] = (rows_out[row].get("launches", 0)
+                                                 + per_step * groups * n)
+    join_launches(rows_out, measured["timed"], SN_BATCH, hbm, gen)
+    # The cost model's estimate of every candidate the measured run timed,
+    # with this process's calibration.
+    cost_model = workloads._choice_latency_fn(
+        workloads.SearchOptions(config="xlarge", num_blocks=SN_BLOCKS,
+                                latency_batch_size=SN_BATCH, device=DEVICE),
+        workloads.DataOptions(data_source="synthetic"))
+    est_all = [cost_model(r["choice"]) for r in measured["results"]]
+    meas_all = [r["latency"] for r in measured["results"]]
+    shared = PROF_EA["init_population"]
+    same_estimates = [r["latency"] for r in runs["cost-model"]["results"][:shared]] == \
+        est_all[:shared]
+    rho = spearman(est_all, meas_all)
+    timed_kinds = set(measured["timed"])
+    emit({"phase": "profiling", "step": "latency_search",
+          "candidates": [{"estimate_ms": e * 1e3, "measured_ms": m * 1e3,
+                          "test_loss": r["test_loss"]}
+                         for e, m, r in zip(est_all, meas_all, measured["results"])],
+          "cost_model_run_test_losses": [r["test_loss"] for r in runs["cost-model"]["results"]],
+          "spearman_cost_model_vs_measured": rho,
+          "seconds": {k: v["seconds"] for k, v in runs.items()},
+          "measured_mode_launches": measured["timed"],
+          "evaluator_launches": {k: v["evaluator"] for k, v in runs.items()}})
+
+    # The device checks, each of which must print its OK line.
+    checks = {}
+    for name, tool in (("body", body_device_check), ("sweep", sweep_device_check)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tool.main()
+        checks[name] = buf.getvalue().strip()
+        print(checks[name], flush=True)
+
+    # main_train with --report_flops and --profile_dir for 3 xlarge steps.
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main_train.main([
+            "--arch", "criteo-kaggle/xlarge", "--data_source", "synthetic", "--device", DEVICE,
+            "--max_train_steps", str(PROF_TRAIN_STEPS), "--max_eval_steps", "1",
+            "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_BATCH),
+            "--test_interval", str(PROF_TRAIN_STEPS), "--learning_rate", "0.02",
+            "--report_flops", "1", "--logging_dir", str(tmp / "flops"),
+            "--profile_dir", str(tmp / "trace")])
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    join_launches(rows_out, train_launches, SN_BATCH, hbm, gen)
+    flops_line = [l for l in buf.getvalue().splitlines() if l.startswith("FLOPS:")]
+    trace = tmp / "trace" / "trace.json"
+    trace_bytes = trace.stat().st_size if trace.is_file() else 0
+
+    losses = [r["test_loss"] for run in runs.values() for r in run["results"]]
+    ok = (flops["kernel"] == flops["plain"] > 0
+          and all(math.isfinite(v) and v > 0 for v in calib.values())
+          and all(math.isfinite(v[0]) and v[0] > 0 for v in latency.values())
+          and all(len(run["results"]) == PROF_CANDIDATES for run in runs.values())
+          and all(run["evaluator"] == evaluator_want for run in runs.values())
+          and not runs["cost-model"]["timed"]
+          and all(math.isfinite(x) and x < 999 for x in losses)
+          and all(math.isfinite(v) and v > 0 for v in est_all + meas_all)
+          and same_estimates
+          and any(k.startswith("dot_scores_tril_fwd_n") for k in timed_kinds)
+          and any(k.startswith("transformer_body_fwd_s") for k in timed_kinds)
+          and checks["body"].startswith("BODY_DEVICE_CHECK_OK")
+          and checks["sweep"].startswith("SWEEP_DEVICE_CHECK_OK")
+          and len(flops_line) == 1 and trace_bytes > 0
+          and out["state"].step == PROF_TRAIN_STEPS
+          and (tmp / "flops" / "model_graph" / "modules.txt").is_file())
+    emit({"phase": "profiling", "step": "main_train", "flops_line": flops_line,
+          "trace_bytes": trace_bytes, "launches": train_launches, "seconds": train_s,
+          "test_loss": out["logs"][0]["test_loss"], "device_checks": checks,
+          "phase_seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("the profiling phase failed (see the 'profiling' lines)")
+
+
 def phase_search(rows_out):
     """The weight-shared search at the canonical search configuration (see
     the module docstring, phase 6)."""
@@ -2461,6 +2720,7 @@ def main() -> int:
         phase_search(rows_out)
         phase_search_rank()
         phase_search_cli(ckpt, tmp)
+        phase_profiling(ckpt, tmp, rows_out, hbm_bytes_per_s(smi))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     idle = [name for name, row in rows_out.items() if not row.get("launches")]

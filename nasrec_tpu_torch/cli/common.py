@@ -5,11 +5,15 @@
 at 0.5M rows a slot (search mode).  --synthetic_vocab sizes the tables of
 --data_source synthetic (a flag of the port, which the search CLI needs to
 load a supernet trained at another synthetic vocab).  --optimizer, --wd and
---micro_batches (sparse-embedding step only) run.  Left out until their
-layers are ported: the multi-process flags (the mesh branch),
---report_flops and --profile_dir (profiling), and --attention_impl (the port
-picks kernel or plain version by the tensors' device); --loss_function has
-one value, bce, which is what the step computes."""
+--micro_batches (sparse-embedding step only) run.  --report_flops 1 prints
+the parameters and forward FLOPs an example and writes the model's graph
+into <logging_dir>/model_graph/; --profile_dir writes a torch.profiler trace
+of the training there; --attention_impl picks the dot-product and
+transformer nodes' impl: auto (the kernels on the card, the plain versions on
+the CPU), xla (the plain versions), pallas (the kernels; raises on the CPU).
+Left out until their layer is ported: the multi-process flags (the mesh
+branch); --loss_function has one value, bce, which is what the step
+computes."""
 
 from __future__ import annotations
 
@@ -55,6 +59,11 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
     p.add_argument("--no_reg_param_name", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--logging_dir", default=None)
+    p.add_argument("--report_flops", type=int, default=0,
+                   help="1: print params + per-example forward FLOPs, and dump the model "
+                        "graph into <logging_dir>/model_graph/")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (Chrome format) of the training here")
     p.add_argument("--mesh_model", type=int, default=0,
                    help="not yet ported: the (data, model) mesh branch")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
@@ -67,12 +76,20 @@ def add_train_args(p: argparse.ArgumentParser, lr=0.16):
                         "step; full-batch update math, one slice's activations)")
     p.add_argument("--ckpt_backend", default="pickle", choices=["pickle", "orbax"],
                    help="orbax is not yet ported")
+    add_attention_impl_arg(p)
     p.add_argument("--table_update", default="auto", choices=["auto", "scatter", "sweep"],
                    help="every choice runs the touched-row update (its kernel on the "
                         "card), the port's counterpart of the TPU's sweep; "
                         "train_supernet refuses sweep, as the JAX package does")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or the CPU")
+
+
+def add_attention_impl_arg(p: argparse.ArgumentParser):
+    p.add_argument("--attention_impl", default="auto", choices=["auto", "xla", "pallas"],
+                   help="dot-product and transformer nodes: 'auto' = the CUDA kernels on "
+                        "the card, the plain versions on the CPU; 'xla' = the plain "
+                        "versions; 'pallas' = the kernels (raises on the CPU)")
 
 
 def data_options(args) -> DataOptions:
@@ -109,6 +126,9 @@ def train_options(args) -> TrainOptions:
         logging_dir=args.logging_dir,
         mesh_model=args.mesh_model,
         compute_dtype=args.compute_dtype,
+        report_flops=args.report_flops == 1,
+        profile_dir=args.profile_dir,
+        attention_impl=args.attention_impl,
         place_embedding_on_cpu=args.place_embedding_on_cpu == 1,
         ckpt_backend=args.ckpt_backend,
         micro_batches=args.micro_batches,

@@ -15,10 +15,12 @@ the CPU):
 
 --ckpt_path takes a supernet checkpoint of either package.  --method cached
 re-scores the candidates of a record file and carries each record's
-test_loss as gt_test_loss.  Left out until their layers are ported: the
-multi-process flags (the search's cross-process fan-out) and
---attention_impl (cli/common.py); --criterion test_loss_penalty_lat with
---beta != 0 is refused (it needs the profiling layer).
+test_loss as gt_test_loss.  --criterion test_loss_penalty_lat with --beta != 0
+adds each candidate's forward latency at --latency_batch_size to its
+objective: --latency_estimator cost-model (the default; counted, nothing
+timed) or measured (timed through the kernels).  --attention_impl as in
+cli/common.py.  Left out until its layer is ported: the multi-process flags
+(the search's cross-process fan-out).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import argparse
 import os
 import pickle
 
-from nasrec_tpu_torch.cli.common import add_data_args, data_options
+from nasrec_tpu_torch.cli.common import add_attention_impl_arg, add_data_args, data_options
 
 
 def build_parser():
@@ -60,15 +62,18 @@ def build_parser():
                    help="candidates per evaluation group")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--beta", type=float, default=0.0,
-                   help="latency penalty strength (test_loss_penalty_lat); "
-                        "beta != 0 is not yet ported")
+                   help="latency penalty strength (test_loss_penalty_lat)")
     p.add_argument("--target_latency", type=float, default=-1.0)
     p.add_argument("--latency_batch_size", type=int, default=512)
     p.add_argument("--latency_trials", type=int, default=50)
     p.add_argument("--latency_estimator", default="cost-model",
-                   choices=["cost-model", "measured"])
+                   choices=["cost-model", "measured"],
+                   help="'cost-model' (default): matmul FLOPs and tensor bytes of the "
+                        "plain forward, counted on the meta device, over one chip "
+                        "calibration; 'measured': time each distinct plan's forward")
     p.add_argument("--finetune_whole_supernet", type=int, default=0,
                    help="1: fine-tune all params, one candidate at a time")
+    add_attention_impl_arg(p)
     p.add_argument("--logging_dir", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or the CPU")
@@ -96,6 +101,7 @@ def main(argv=None):
         latency_trials=args.latency_trials,
         latency_estimator=args.latency_estimator,
         finetune_mode="whole" if args.finetune_whole_supernet == 1 else "final-only",
+        attention_impl=args.attention_impl,
         device=args.device,
     )
     if args.method != "cached":

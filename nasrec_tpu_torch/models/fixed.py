@@ -318,8 +318,10 @@ class FixedModel(nn.Module):
 
 def fixed_init(plan: FixedPlan, seed: int = 0, device="cpu") -> FixedModel:
     """A freshly initialised model on `device`, drawn from a torch.Generator
-    seeded with `seed` (not JAX's PRNG: parity goes through transplant)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    seeded with `seed` (not JAX's PRNG: parity goes through transplant).  On
+    the `meta` device (shapes only, for counting) nothing is drawn."""
+    gen_device = "cpu" if torch.device(device).type == "meta" else device
+    gen = torch.Generator(device=gen_device).manual_seed(seed)
     return FixedModel(plan, gen, device)
 
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.ops.common import (
     LayerNorm,
     Linear,
@@ -149,6 +150,15 @@ class SigmoidGating(nn.Module):
         return apply_mask(out, dim_mask)
 
 
+def fm3d_matmul_flops(b: int, slots: int, emb_dim: int) -> int:
+    """FLOPs that `profiling.dot_flops` charges an FM3D forward (and again its
+    backward): the JAX package sums the slots with two products by a static
+    [S*E, E] block identity (nasrec_tpu/ops/interactions.py ::
+    fm3d_apply_flat), which its count sees; the port sums them without a
+    product, and reports the same number so that the two counts agree."""
+    return 2 * 2 * b * slots * emb_dim * emb_dim
+
+
 class FM3D(nn.Module):
     """FactorizationMachine3D (ref: modules.py:720-750): over the slot axis,
     (sum_s x)^2 - sum_s x^2, then an optional projection + LN."""
@@ -166,6 +176,11 @@ class FM3D(nn.Module):
                 dim_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sparse [B, S*E] slot-major flat -> [B, out_dim]."""
         x = sparse.reshape(sparse.shape[0], in_slots, emb_dim)
+        if profiling.counting():
+            flops = fm3d_matmul_flops(sparse.shape[0], in_slots, emb_dim)
+            profiling.report_matmul_flops(flops)
+            if x.requires_grad:
+                x.register_hook(lambda _grad: profiling.report_matmul_flops(flops))
         ix = torch.square(x.sum(dim=1)) - torch.square(x).sum(dim=1)
         if self.proj is not None:
             ix = self.proj(ix)

@@ -24,6 +24,7 @@ from collections import Counter
 
 import torch
 
+from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.ops.kernels import build
 
 EMB = 16
@@ -52,6 +53,14 @@ def tile_geometry(s: int) -> tuple:
         raise ValueError(f"the attention kernels take 1 <= S <= {TILE_THREADS} slots, got {s}")
     rpt = TILE_THREADS // s
     return rpt, -(-rpt * s // 32) * 32
+
+
+def matmul_flops(b: int, s: int) -> int:
+    """Matmul FLOPs of one forward on qkv [b, s, 48], as the dispatcher counts
+    the plain version's two products (q k^T and p v, 2·M·N·K each, the eight
+    heads of width 2 together 16 wide).  A backward counts twice this: each
+    product's two input gradients, as autograd of the plain version runs them."""
+    return 2 * 2 * b * s * s * EMB
 
 
 def tiny_head_attention_plain(qkv: torch.Tensor, num_heads: int = HEADS) -> torch.Tensor:
@@ -161,6 +170,7 @@ def tiny_head_attention_fwd_kernel(qkv: torch.Tensor, num_heads: int = HEADS) ->
         qkv.data_ptr(), o.data_ptr(), b, s, rpt, threads, build.current_stream()),
         "attention fwd")
     LAUNCHES[f"fwd_s{s}{sfx}"] += 1
+    profiling.report_matmul_flops(matmul_flops(b, s))
     return o
 
 
@@ -177,6 +187,7 @@ def tiny_head_attention_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor,
         qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, s, rpt, threads,
         build.current_stream()), "attention bwd")
     LAUNCHES[f"bwd_s{s}{sfx}"] += 1
+    profiling.report_matmul_flops(2 * matmul_flops(b, s))
     return dqkv
 
 

@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.ops.kernels import build
 from nasrec_tpu_torch.ops.kernels.attention import check_activation_dtype, dtype_suffix
 
@@ -40,6 +41,15 @@ _TILE_TABLES: Dict[tuple, torch.Tensor] = {}
 
 def tril_size(n: int) -> int:
     return n * (n - 1) // 2
+
+
+def matmul_flops(b: int, n: int) -> int:
+    """Matmul FLOPs of one forward at batch b and n = m + 1 rows, as the
+    dispatcher counts the plain version's product (the full [n, n] scores a
+    batch row, 2·n·n·16, of which the kernel keeps the lower triangle; the
+    JAX package's einsum counts the same).  A backward counts twice this:
+    the product's two input gradients."""
+    return 2 * b * n * n * EMB
 
 
 def _tril_flat_index(n: int, device) -> torch.Tensor:
@@ -174,6 +184,7 @@ def dot_scores_tril_fwd_kernel(x: torch.Tensor, yt: torch.Tensor) -> torch.Tenso
         x.data_ptr(), yt.data_ptr(), z.data_ptr(), tiles.data_ptr(), tiles.shape[0], b, n,
         tb, threads, build.current_stream()), "dotprod fwd")
     LAUNCHES[f"fwd_n{n}{sfx}"] += 1
+    profiling.report_matmul_flops(matmul_flops(b, n))
     return z
 
 
@@ -190,6 +201,7 @@ def dot_scores_tril_bwd_kernel(x: torch.Tensor, yt: torch.Tensor, dz: torch.Tens
         x.data_ptr(), yt.data_ptr(), dz.data_ptr(), dx.data_ptr(), dyt.data_ptr(), b, n, te,
         tb, threads, build.current_stream()), "dotprod bwd")
     LAUNCHES[f"bwd_n{n}{sfx}"] += 1
+    profiling.report_matmul_flops(2 * matmul_flops(b, n))
     return dx, dyt
 
 

@@ -42,6 +42,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.ops.common import LN_EPS
 from nasrec_tpu_torch.ops.kernels import build
 from nasrec_tpu_torch.ops.kernels.attention import (
@@ -53,6 +54,7 @@ from nasrec_tpu_torch.ops.kernels.attention import (
     tile_geometry,
     tiny_head_attention_plain,
 )
+from nasrec_tpu_torch.ops.kernels.attention import matmul_flops as attention_matmul_flops
 
 PARAM_NAMES = ("w_in", "b_in", "w_out", "b_out", "attn_ln_w", "attn_ln_b",
                "fc1_w", "fc1_b", "fc2_w", "fc2_b", "fc_ln_w", "fc_ln_b")
@@ -87,6 +89,15 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_lo = ((a - a_hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
     b_lo = ((b - b_hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def matmul_flops(b: int, s: int) -> int:
+    """Matmul FLOPs of one forward on x [b, s, 16], as the dispatcher counts
+    the plain version's products (2·M·N·K each): the four feature linears
+    (qkv 16 -> 48, out-projection, fc1, fc2) and the attention core's two.  A
+    backward counts twice this, as autograd of the plain version runs it
+    where x needs a gradient (each product's two input gradients)."""
+    return 2 * b * s * EMB * (3 * EMB + 3 * EMB) + attention_matmul_flops(b, s)
 
 
 def transformer_body_plain(x: torch.Tensor, params: Sequence[torch.Tensor],
@@ -151,6 +162,7 @@ def transformer_body_fwd_kernel(x: torch.Tensor, flat: torch.Tensor, save: bool)
         b, s, rpt, threads, int(slot_minor), LN_EPS, build.current_stream()),
         "transformer_body fwd")
     LAUNCHES[(f"fwd_train_s{s}" if save else f"fwd_s{s}") + sfx] += 1
+    profiling.report_matmul_flops(matmul_flops(b, s))
     return out, o, stats
 
 
@@ -173,6 +185,7 @@ def transformer_body_bwd_kernel(x, dout, o, stats, flat):
         dx.data_ptr(), partial.data_ptr(), dflat.data_ptr(), b, s, rpt, threads, nblocks,
         int(slot_minor), LN_EPS, build.current_stream()), "transformer_body bwd")
     LAUNCHES[f"bwd_s{s}{sfx}"] += 1
+    profiling.report_matmul_flops(2 * matmul_flops(b, s))
     return (dx.transpose(1, 2) if slot_minor else dx), dflat
 
 

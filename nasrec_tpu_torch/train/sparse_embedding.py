@@ -107,6 +107,7 @@ def make_sparse_embedding_train_step(
     trainable: Optional[Mapping[str, bool]] = None,
     microbatch: int = 1,
     compute_dtype: torch.dtype = torch.float32,
+    table_impl: Optional[str] = None,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
@@ -116,7 +117,8 @@ def make_sparse_embedding_train_step(
     default), on the state of `init_sparse_train_state(model, optimizer)`.
     A frozen parameter (`trainable`) keeps its value and its slots.
     impl='auto' runs the hand-written kernels on the card and their plain
-    versions on the CPU; impl='plain' names the plain versions.
+    versions on the CPU; impl='plain' names the plain versions.  `table_impl`
+    picks the table update's apart from the model's (None: `impl`).
 
     microbatch > 1 runs the forward and backward one slice of B/m rows at a
     time (one slice's activations in memory) and keeps the update math of
@@ -129,6 +131,7 @@ def make_sparse_embedding_train_step(
     gradient comes back through the model's cast as float32, so the
     segment-sum, the clip and the table update stay float32."""
     optimizer = optimizer or make_optimizer("adagrad")
+    table_impl = impl if table_impl is None else table_impl
 
     def step(state: TrainState, dense, cat, y, masks=None):
         if has_masks and masks is None:
@@ -201,7 +204,7 @@ def make_sparse_embedding_train_step(
                               [p for _, p in rest], g_rest, lr)
             if train_table:
                 sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
-                                            rows, seg, lr, adagrad_eps, impl=impl)
+                                            rows, seg, lr, adagrad_eps, impl=table_impl)
         state.step += 1
         metrics = {"loss": bce, "l2": l2, "lr": lr, "logits": logits}
         return state, metrics

@@ -13,12 +13,15 @@ parameters, table, optimizer state and logits in f32); supernet training
 with every path-sampling strategy, resume from a checkpoint (any optimizer's
 state), evo-2shot candidates, a pretrained table and both eval paths; random
 search, regularized evolution and the re-scoring of a given candidate list,
-in the three fine-tune modes; checkpoints (pickle, in the JAX package's
-layout, so each package loads the other's) and `metrics.jsonl`.  Not yet
-ported, and rejected up front with an error that says so: the mesh branch,
-the host-offload branch, orbax checkpoints, and the search's latency
-criterion with beta != 0 (it needs the profiling layer).  The search, as in
-the JAX package, runs in float32.
+in the three fine-tune modes, with the latency criterion (its latency
+measured through the kernels or estimated by the cost model of
+`profiling.py`); checkpoints (pickle, in the JAX package's layout, so each
+package loads the other's) and `metrics.jsonl`; `report_flops` (a FLOPs and
+parameters line, and the model's graph as text), `profile_dir` (a
+torch.profiler trace) and `attention_impl` (kernels or plain versions for the
+dot-product and transformer nodes).  Not yet ported, and rejected up front
+with an error that says so: the mesh branch, the host-offload branch and
+orbax checkpoints.  The search, as in the JAX package, runs in float32.
 """
 
 from __future__ import annotations
@@ -32,13 +35,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.choices import Choice, choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
 from nasrec_tpu_torch.data.pipeline import device_prefetch, make_dataset_iterators
 from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
 from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint
-from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
+from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_apply, fixed_init
 from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
 from nasrec_tpu_torch.models.transplant import (
     from_jax_opt_state,
@@ -106,6 +110,12 @@ class TrainOptions:
     # "bfloat16" (or "bf16") runs the model's activations in bf16; the
     # parameters, table, optimizer state and logits stay float32.
     compute_dtype: str = "float32"
+    report_flops: bool = False        # print params + per-example FLOPs, dump the graph
+    profile_dir: Optional[str] = None  # write a torch.profiler trace of the training
+    # The dot-product and transformer nodes: "auto" (the kernels on the card,
+    # the plain versions on the CPU), "xla" (the plain versions), "pallas"
+    # (the kernels; raises on the CPU).  The JAX package's names.
+    attention_impl: str = "auto"
     place_embedding_on_cpu: bool = False
     ckpt_backend: str = "pickle"
     # "auto": the sparse-embedding step for adagrad with wd = 0, else the
@@ -145,6 +155,19 @@ def _compute_dtype(train: TrainOptions) -> torch.dtype:
                          f"{', '.join(COMPUTE_DTYPES)}") from None
 
 
+# attention_impl (the JAX package's names) -> the port's impl of the
+# dot-product and transformer nodes.
+MODEL_IMPLS = {"auto": "auto", "xla": "plain", "pallas": "kernel"}
+
+
+def _model_impl(attention_impl: str) -> str:
+    try:
+        return MODEL_IMPLS[attention_impl]
+    except KeyError:
+        raise ValueError(f"unknown attention_impl {attention_impl!r}: one of "
+                         f"{', '.join(MODEL_IMPLS)}") from None
+
+
 def _use_sparse_embedding(train: TrainOptions) -> bool:
     if isinstance(train.sparse_embedding, bool):
         return train.sparse_embedding
@@ -159,6 +182,7 @@ def _validate(data: DataOptions, train: TrainOptions) -> None:
     if train.ckpt_backend == "orbax":
         raise _not_ported("orbax checkpoints (--ckpt_backend orbax)")
     _compute_dtype(train)
+    _model_impl(train.attention_impl)
     if train.micro_batches < 1:
         raise ValueError(f"micro_batches must be at least 1, got {train.micro_batches}")
     if train.micro_batches > 1 and not _use_sparse_embedding(train):
@@ -229,10 +253,13 @@ def _make_step(train: TrainOptions, sched, **kw):
     `_use_sparse_embedding`, with its fresh state's optimizer."""
     opt = make_optimizer(train.optimizer)
     common = dict(grad_clip=train.grad_clip, l2_reg=train.wd,
-                  l2_exclude=train.no_reg_param_name, compute_dtype=_compute_dtype(train), **kw)
+                  l2_exclude=train.no_reg_param_name, compute_dtype=_compute_dtype(train),
+                  impl=_model_impl(train.attention_impl), **kw)
     if _use_sparse_embedding(train):
+        # attention_impl picks the nodes' impl; the table update, as in the
+        # JAX package, is not switched by it.
         return opt, make_sparse_embedding_train_step(
-            sched, optimizer=opt, microbatch=train.micro_batches, **common)
+            sched, optimizer=opt, microbatch=train.micro_batches, table_impl="auto", **common)
     return opt, make_train_step(opt, sched, **common)
 
 
@@ -240,6 +267,70 @@ def _init_state(model, opt, train: TrainOptions):
     if _use_sparse_embedding(train):
         return init_sparse_train_state(model, opt)
     return init_train_state(model, opt)
+
+
+def _report_model_stats(model, spec, log_fn, logging_dir: Optional[str] = None) -> None:
+    """Parameters and forward FLOPs an example (`profiling.count_flops` of
+    the plain forward at batch 1: the matmul FLOPs, which the kernels count
+    alike), in the JAX package's format.  With a logging_dir, also the
+    model's graph as text in `model_graph/`: the module tree and each
+    parameter's shape and dtype (the JAX package writes the forward's
+    StableHLO and jaxpr there).  A failed dump prints and the run goes on."""
+    dev = model.final.weight.device
+    dense = torch.zeros((1, spec.num_dense), dtype=torch.float32, device=dev)
+    cat = torch.zeros((1, spec.num_sparse), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        flops = profiling.count_flops(lambda m, d, c: fixed_apply(m, d, c, impl="plain"),
+                                      model, dense, cat)
+    log_fn(f"FLOPS: {flops / 1e6:.4f} M/example \t "
+           f"Params: {profiling.count_params(model) / 1e6:.4f} M")
+    if not logging_dir:
+        return
+    try:
+        gdir = os.path.join(logging_dir, "model_graph")
+        os.makedirs(gdir, exist_ok=True)
+        with open(os.path.join(gdir, "modules.txt"), "w") as f:
+            f.write(f"{model}\n")
+        with open(os.path.join(gdir, "parameters.txt"), "w") as f:
+            for name, p in model.named_parameters():
+                f.write(f"{name}\t{tuple(p.shape)}\t{p.dtype}\n")
+        log_fn(f"model graph dumped to {gdir}")
+    except OSError as e:  # a graph dump must never end a run
+        log_fn(f"model graph dump unavailable: {e}")
+
+
+class _MaybeProfile:
+    """A torch.profiler trace of the enclosed run (CPU activity, and the
+    card's where there is one), written as `<profile_dir>/trace.json` in the
+    Chrome trace format; nothing without a profile_dir.  A profiler that
+    fails prints and the run goes on, as in the JAX package."""
+
+    def __init__(self, profile_dir: Optional[str]):
+        self.dir = profile_dir
+        self.prof = None
+
+    def __enter__(self):
+        if self.dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            try:
+                self.prof = torch.profiler.profile(activities=activities)
+                self.prof.__enter__()
+            except Exception as e:  # profiling must never end a run
+                print(f"profiler unavailable: {e}")
+                self.prof = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            try:
+                self.prof.__exit__(None, None, None)
+                os.makedirs(self.dir, exist_ok=True)
+                self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+            except Exception as e:  # profiling must never end a run
+                print(f"profiler trace not written: {e}")
+        return False
 
 
 def train_fixed_subnet(
@@ -277,26 +368,31 @@ def train_fixed_subnet(
                          "(adagrad, wd=0 or sparse_embedding=True)")
     opt, step = _make_step(train, sched)
     state = _init_state(model, opt, train)
-    eval_step = make_eval_step(compute_dtype=_compute_dtype(train))
+    eval_step = make_eval_step(impl=_model_impl(train.attention_impl),
+                               compute_dtype=_compute_dtype(train))
     train_iter, test_iter = _make_iterators(data, device)
+
+    if train.report_flops:
+        _report_model_stats(model, spec, log_fn, logging_dir=train.logging_dir)
 
     writer = MetricsWriter(train.logging_dir)
     epoch_logs, best = [], None
-    for epoch in range(train.num_epochs):
-        state, logs, best_ep = train_and_test_one_epoch(
-            step, eval_step, state, train_iter(), test_iter,
-            epoch=epoch,
-            display_interval=train.display_interval,
-            test_interval=train.test_interval,
-            max_train_steps=steps_per_epoch,
-            max_eval_steps=_max_eval_steps(data, train),
-            test_only_at_last_step=train.test_only_at_last_step,
-            log_fn=log_fn,
-            metrics_writer=writer,
-        )
-        epoch_logs.append(logs)
-        if best_ep is not None:
-            best = best_ep
+    with _MaybeProfile(train.profile_dir):
+        for epoch in range(train.num_epochs):
+            state, logs, best_ep = train_and_test_one_epoch(
+                step, eval_step, state, train_iter(), test_iter,
+                epoch=epoch,
+                display_interval=train.display_interval,
+                test_interval=train.test_interval,
+                max_train_steps=steps_per_epoch,
+                max_eval_steps=_max_eval_steps(data, train),
+                test_only_at_last_step=train.test_only_at_last_step,
+                log_fn=log_fn,
+                metrics_writer=writer,
+            )
+            epoch_logs.append(logs)
+            if best_ep is not None:
+                best = best_ep
     writer.close()
 
     _dump_logs(train.logging_dir, epoch_logs,
@@ -372,7 +468,8 @@ def train_supernet(
         log_fn(f"resumed from {sn.checkpoint_path} at step {start_step}")
     state.step = start_step
 
-    eval_step = make_eval_step(has_masks=True, compute_dtype=_compute_dtype(train))
+    eval_step = make_eval_step(impl=_model_impl(train.attention_impl), has_masks=True,
+                               compute_dtype=_compute_dtype(train))
     candidates = None
     if sn.evo_2shot_candidates_path:
         with open(sn.evo_2shot_candidates_path, "rb") as f:
@@ -485,13 +582,20 @@ class SearchOptions:
     batch_finetune: bool = True
     # Latency-aware search (criterion="test_loss_penalty_lat"):
     # objective = test_loss + beta * (latency / target_latency - 1)
-    # (TuNAS-style relaxation, ref: searcher.py:65-73).  Measuring latency
-    # needs the profiling layer: beta != 0 is not yet ported.
+    # (TuNAS-style relaxation, ref: searcher.py:65-73).  With beta != 0 each
+    # distinct plan's forward latency at latency_batch_size is estimated by
+    # the cost model ("cost-model": profiling.estimate_latency_cost_model on
+    # the meta device, against one chip calibration a process) or timed
+    # ("measured": the forward through the kernels on the card, or the CPU).
     beta: float = 0.0
     target_latency: float = -1.0
     latency_batch_size: int = 512
     latency_trials: int = 50
     latency_estimator: str = "cost-model"
+    # The dot-product and transformer nodes of the candidate evaluator and the
+    # measured latency (TrainOptions.attention_impl); in the whole-net mode it
+    # picks the table update's impl too.
+    attention_impl: str = "auto"
     device: str = "cuda"
 
 
@@ -499,9 +603,7 @@ def _validate_search(so: SearchOptions, data: DataOptions) -> None:
     _validate_data(data)
     if so.latency_estimator not in ("cost-model", "measured"):
         raise ValueError(f"unknown latency_estimator {so.latency_estimator!r}")
-    if so.criterion == "test_loss_penalty_lat" and so.beta != 0.0:
-        raise _not_ported("the latency criterion (--criterion test_loss_penalty_lat with "
-                          "--beta != 0; it needs the profiling layer)")
+    _model_impl(so.attention_impl)
 
 
 def _search_setup(so: SearchOptions, data: DataOptions, warning: str, log_fn):
@@ -528,6 +630,7 @@ def _search_setup(so: SearchOptions, data: DataOptions, warning: str, log_fn):
         max_eval_steps=so.max_eval_steps,
         finetune_mode=so.finetune_mode,
         batch_candidates=so.batch_finetune,
+        impl=_model_impl(so.attention_impl),
     )
     return evaluator, _make_iterators(data, device)
 
@@ -553,6 +656,63 @@ def evaluate_choices_from_supernet(
     return results
 
 
+# calibrate_chip's result, once a process for each device type (the cost
+# model's denominators need only be consistent across candidates).
+_CALIBRATION: Dict[str, dict] = {}
+
+
+def _calibration(device: torch.device) -> dict:
+    if device.type not in _CALIBRATION:
+        _CALIBRATION[device.type] = profiling.calibrate_chip(
+            matmul_dim=2048, copy_mb=64, trials=8, device=device.type)
+    return _CALIBRATION[device.type]
+
+
+def _choice_latency_fn(so: SearchOptions, data: DataOptions) -> Callable[[Choice], float]:
+    """choice -> forward latency in seconds of its fixed subnet at
+    so.latency_batch_size (as `nasrec_tpu/workloads.py ::
+    _measure_choice_latency`), cached by plan: the frozen FixedPlan of two
+    candidates with the same structure is equal.  "measured" times a freshly
+    initialised model's forward (`profiling.measure_latency`, through the
+    kernels on the card) and frees it; "cost-model" counts the plain forward
+    on the meta device (`profiling.estimate_latency_cost_model`)."""
+    device = resolve_device(so.device)
+    spec, vocab = _spec_and_vocab(data)
+    space = OPS_CONFIG_LIB[so.config]
+    impl = _model_impl(so.attention_impl)
+    cache: Dict[Any, float] = {}
+
+    def forward(model, dense, cat, impl_):
+        with torch.no_grad():
+            return fixed_apply(model, dense, cat, impl=impl_)
+
+    def latency(choice: Choice) -> float:
+        plan = build_fixed_plan(choice, space, so.num_blocks, spec.num_dense, spec.num_sparse,
+                                vocab, use_layernorm=so.use_layernorm)
+        if plan in cache:
+            return cache[plan]
+        if so.latency_estimator == "measured":
+            model = fixed_init(plan, 0, device)
+            dense = torch.zeros((so.latency_batch_size, spec.num_dense), device=device)
+            cat = torch.zeros((so.latency_batch_size, spec.num_sparse), dtype=torch.int32,
+                              device=device)
+            lat, _ = profiling.measure_latency(forward, (model, dense, cat, impl),
+                                               num_warmup_steps=5, num_trials=so.latency_trials)
+            del model      # up to 196 MB of table at the search cap; keep the number only
+        else:
+            calib = _calibration(device)
+            meta = torch.device("meta")
+            dense = torch.zeros((so.latency_batch_size, spec.num_dense), device=meta)
+            cat = torch.zeros((so.latency_batch_size, spec.num_sparse), dtype=torch.int32,
+                              device=meta)
+            lat = profiling.estimate_latency_cost_model(
+                forward, (fixed_init(plan, 0, meta), dense, cat, "plain"), calib)
+        cache[plan] = lat
+        return lat
+
+    return latency
+
+
 def search_from_supernet(
     so: SearchOptions = SearchOptions(),
     data: DataOptions = DataOptions(train_batch_size=512, test_batch_size=8192),
@@ -568,10 +728,15 @@ def search_from_supernet(
         raise NotImplementedError(f"method {so.method}")
     evaluator, (train_iter_fn, test_iter_fn) = _search_setup(
         so, data, "WARNING: no supernet checkpoint; searching over random weights", log_fn)
+    need_latency = so.criterion == "test_loss_penalty_lat" and so.beta != 0.0
+    choice_latency = _choice_latency_fn(so, data)
 
     def eval_fn(choices):
         t0 = time.time()
         results = evaluator(choices, train_iter_fn, test_iter_fn, log_fn=log_fn)
+        if need_latency:
+            for r in results:
+                r["latency"] = choice_latency(r["choice"])
         log_fn(f"evaluated {len(choices)} candidates in {time.time() - t0:.1f}s")
         return results
 

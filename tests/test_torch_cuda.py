@@ -14,7 +14,10 @@ and 1024, and two final-only candidates fine-tuned and scored through the
 kernels against the plain versions; device_prefetch's copies on a side stream
 against blocking copies over 50 batches; the dense-gradient step's launches (no
 table update) for Adam, SGD and Adagrad with wd > 0, against its plain step;
-and the micro-batched sparse step's single table update against one slice.
+and the micro-batched sparse step's single table update against one slice;
+profiling.dot_flops of the xlarge forward (and of a forward and backward)
+through the kernels against the plain versions, and both device checks
+(tools/body_device_check.py, tools/sweep_device_check.py).
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -713,3 +716,36 @@ def test_bf16_xlarge_step_launches_the_bf16_kernels(dev):
     # One bf16 step from the same weights: the two paths round the same f32
     # values, so the loss agrees to a bf16 ulp of the logits' effect.
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_dot_flops_of_the_kernel_path_equals_the_plain_path(dev, train):
+    """profiling.dot_flops of the xlarge forward (and of a forward and
+    backward) at batch 512: the kernels report their plain versions' counts,
+    so both paths count the same, and the kernel path did launch."""
+    from nasrec_tpu_torch import profiling
+    from nasrec_tpu_torch.train.metrics import bce_with_logits
+
+    model, (dense, cat, y) = _fixed_case(dev, 512)
+
+    def call(impl):
+        if not train:
+            with torch.no_grad():
+                return model(dense, cat, impl=impl)
+        bce_with_logits(model(dense, cat, impl=impl), y).backward()
+
+    before = _launches()
+    kernel = profiling.dot_flops(call, "kernel")
+    launched = _launched(before)
+    assert launched.get("dot_fwd_n40") == 1 and launched.get("body_fwd_s64" if not train
+                                                             else "body_bwd_s64") == 1
+    assert kernel == profiling.dot_flops(call, "plain") > 0
+
+
+def test_device_checks_pass(dev, capsys):
+    from nasrec_tpu_torch.tools import body_device_check, sweep_device_check
+
+    body_device_check.main()
+    sweep_device_check.main()
+    out = capsys.readouterr().out
+    assert "BODY_DEVICE_CHECK_OK" in out and "SWEEP_DEVICE_CHECK_OK" in out

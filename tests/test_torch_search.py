@@ -165,14 +165,9 @@ def test_main_train_net_supernet_trains_the_full_path(monkeypatch):
 def _refusals():
     """Each unported branch, called with device 'cuda' on a machine without
     a card: the refusal must come before the device check and any work."""
-    syn = workloads.DataOptions(data_source="synthetic")
-    lat = workloads.SearchOptions(criterion="test_loss_penalty_lat", beta=0.5,
-                                  target_latency=1.0, device="cuda")
     return {
         "distribute": lambda: Searcher(lambda c: [], Tokenizer(2, OPS_CONFIG_LIB["xlarge"]),
                                        SearchConfig(distribute=True)),
-        "latency_search": lambda: workloads.search_from_supernet(lat, syn),
-        "latency_rescore": lambda: workloads.evaluate_choices_from_supernet([], lat, syn),
     }
 
 
