@@ -20,7 +20,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               transposed, and from a contiguous x);
               the attention core at the same S; the transformer
               node's fused form against its unfused form; the full-vocab
-              table update with uniform and zipf(1.05) indices.  With errors
+              table update with uniform and zipf(1.05) indices, and on the
+              table's two halves by row_offset (phase 10c).  With errors
               and CUDA-event times of kernel, plain version and the one
               PyTorch call that computes the same function; for the
               dot-product and the table update also the kernel's time with
@@ -139,6 +140,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
               batch 512 (a FLOPS line and a trace file).  Launches at a batch-512
               shape without a row get one: its kernel checked against the
               plain version at that shape and timed.
+
+  10. multi-device  10a, the host-RAM table: criteo-kaggle/xlarge at full vocab
+              (33,762,601 rows) and batch 32768, the table and its Adagrad
+              accumulator in host RAM (parallel/host_embedding.py), 1 warm-up
+              step and 3 more, against the one-device sparse step from the
+              same weights and batches (loss and dense parameters within
+              1e-4; the touched rows of the table and the accumulator within
+              1e-3 of the reference's largest movement of each), the step's
+              time split into host lookup, copy to the card, forward and
+              backward, copy back, host segment-sum and update; the body and
+              dot-product kernels counted.  10b, the mesh at world size 1: an
+              NCCL group of one rank, --mesh_model 1, the same cell and steps
+              through the sparse mesh step, held to the one-device step as
+              phase 3 holds its steps, every kernel of a step counted, its
+              step time beside phase 3's.  10c (in phase 2): the table update
+              launched on the two halves of the full-vocab table with
+              row_offset 0 and rows/2 gives the whole-table launch's bits.
+              10d, the search fan-out: the search CLI (phase 8's configuration,
+              16 candidates in two groups of 8) on phase 5's checkpoint in two
+              processes on the one card against one process; results.pickle
+              and all_results.pickle the same choices in order, metrics within
+              1e-6 relative; seconds a candidate for each, of the processes'
+              wall time and of the search's own time (its "evaluated ...
+              candidates in ...s" lines).  10e: the supernet CLI at phase 5's
+              configuration with --ckpt_backend orbax (2 steps) writes
+              arrays/ and sidecar.json, which reload into the run's weights bit
+              for bit, and a run resumes from the directory at its step.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -317,6 +345,26 @@ PROF_EA = dict(init_population=8, n_generations=1, n_childs=8, sample_size=4, ea
 PROF_CANDIDATES = PROF_EA["init_population"] + PROF_EA["n_generations"] * PROF_EA["n_childs"]
 PROF_STEPS, PROF_BETA, PROF_TRAIN_STEPS = 5, 0.5, 3
 BF16_PEAK = 989e12       # H100 SXM dense bf16 (data sheet)
+# Phase 10 (multi-device): the host-RAM table and the mesh at world size 1,
+# criteo-kaggle/xlarge at full vocab and batch 32768, 1 warm-up step and 3
+# more, each against the one-device sparse step from the same weights and
+# batches.  The offload step sums duplicate rows with NumPy in another order
+# than the card's segment-sum, so its loss and dense parameters are held to
+# 1e-4.  In the warm-up schedule's first steps the touched rows move little
+# (lr <= 4.8e-4, Adagrad's eps 1e-2), so the touched rows of the table and the
+# accumulator are held to 1e-3 of the reference's largest movement of each
+# from its starting value: a host update that left out the accumulator or
+# squared duplicates before summing them is off by about all of it.  The mesh
+# step runs the same kernels in the same order and is held as phase 3 holds
+# its steps.
+MD_STEPS = 4
+OFFLOAD_TOL = 1e-4
+OFFLOAD_REL = 1e-3
+# The search fan-out: phase 8's search configuration on phase 5's checkpoint
+# with two groups of 8 (one for each process); metrics within 1e-6 relative.
+FANOUT_CANDIDATES = 2 * SEARCH_GROUP
+FANOUT_TOL = 1e-6
+ORBAX_STEPS = 2         # the directory checkpoint's run; its resume takes 1 more
 
 
 def emit(obj) -> None:
@@ -944,6 +992,7 @@ def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_updat
             raise SystemExit(f"table_update ({kind}, {total} rows) disagrees with its "
                              "plain version")
         if kind == "uniform":
+            check_row_offset_halves(table0, acc0, rows, seg, lr, t_k, a_k)
             r_end = rows[is_end].long()
             d = seg[is_end]
             sq = d * d
@@ -964,6 +1013,31 @@ def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_updat
         torch.cuda.empty_cache()
     del table0, acc0
     torch.cuda.empty_cache()
+
+
+def check_row_offset_halves(table0, acc0, rows, seg, lr, t_whole, a_whole) -> None:
+    """Phase 10c, the sharded table update: two launches of the kernel on the
+    two halves of the table (row_offset 0 and rows/2, positions of the other
+    half skipped), as the model ranks of a mesh launch it, must give the
+    whole-table launch's bits (`t_whole`, `a_whole`, already checked against
+    the plain version).  The counterpart of tests/test_table_sweep.py ::
+    test_sweep_row_offset_shards_reproduce_full_table."""
+    import torch
+
+    from nasrec_tpu_torch.ops.kernels import table_update
+
+    half = table0.shape[0] // 2
+    t_h, a_h = table0.clone(), acc0.clone()
+    for lo, hi in ((0, half), (half, table0.shape[0])):
+        table_update.table_update_kernel(t_h[lo:hi], a_h[lo:hi], rows, seg, lr, row_offset=lo)
+    exact = torch.equal(t_h, t_whole) and torch.equal(a_h, a_whole)
+    emit({"phase": "kernels", "kernel": "table_update", "check": "row_offset_halves",
+          "table_rows": int(table0.shape[0]), "row_offsets": [0, half],
+          "bit_exact_vs_whole_table": exact, "ok": exact})
+    if not exact:
+        raise SystemExit("the table update on two row_offset halves differs from the "
+                         "whole-table launch")
+    del t_h, a_h
 
 
 def phase_kernels(hbm):
@@ -2683,6 +2757,223 @@ def phase_supernet_cli_bf16(tmp: Path) -> None:
         raise SystemExit("the supernet CLI did not train in bf16")
 
 
+def dense_diff(model_a, model_b) -> float:
+    """Largest difference of the parameters other than the table."""
+    sd_a, sd_b = model_a.state_dict(), model_b.state_dict()
+    return max((sd_a[k] - sd_b[k]).abs().max().item() for k in sd_a if k != "embedding.table")
+
+
+def phase_multi_device(rows_out, main_step_ms: float) -> None:
+    """Phases 10a and 10b: the host-RAM table and the mesh at world size 1,
+    criteo-kaggle/xlarge at full vocab and batch 32768, each against the
+    one-device sparse step from the same weights and batches (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.embedding import table_offsets
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.parallel import distributed
+    from nasrec_tpu_torch.parallel.mesh import make_mesh
+    from nasrec_tpu_torch.parallel.sparse import make_parallel_sparse_train_step
+    from nasrec_tpu_torch.parallel.train import shard_train_state
+    from nasrec_tpu_torch.parallel.host_embedding import (
+        HostEmbedding,
+        detach_table,
+        make_host_offload_train_step,
+    )
+    from nasrec_tpu_torch.tools.multihost_demo import free_port
+    from nasrec_tpu_torch.train.loop import init_train_state
+    from nasrec_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+        table_accumulator,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
+    plan = xlarge_plan(vocab)
+    sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
+    batches = device_batches(np.random.RandomState(10), MD_STEPS, BATCH, vocab)
+    model0 = fixed_init(plan, seed=0, device=dev)
+    # The one-device sparse step: the reference of both.
+    ref = copy.deepcopy(model0)
+    ref_state = init_sparse_train_state(ref)
+    ref_losses, ref_times, _ = run_steps(
+        make_sparse_embedding_train_step(sched, grad_clip=5.0), ref_state, batches)
+    touched = torch.unique(torch.cat([ref.embedding.fused_index(c).reshape(-1).long()
+                                      for _, c, _ in batches]))
+    ref_acc = table_accumulator(ref_state.opt_state)
+    want = {k: MD_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]}
+
+    # 10a: the table and its accumulator in host RAM.
+    off = copy.deepcopy(model0)
+    host = HostEmbedding(detach_table(off), table_offsets(vocab))
+    torch.cuda.empty_cache()
+    adagrad = make_optimizer("adagrad")
+    timings = {}
+    step = make_host_offload_train_step(adagrad, sched, host, grad_clip=5.0, timings=timings)
+    off_state = init_train_state(off, adagrad)
+    reset_launches()
+    off_losses, off_times, _ = run_steps(step, off_state, batches[:1])
+    timings.clear()             # the warm-up step's split is not kept
+    more_losses, more_times, _ = run_steps(step, off_state, batches[1:])
+    launches = read_launches()
+    off_losses += more_losses
+    rows_np = touched.cpu().numpy()
+    table_err = float(np.abs(host.table[rows_np]
+                             - ref.embedding.table[touched].cpu().numpy()).max())
+    acc_err = float(np.abs(host.acc[rows_np] - ref_acc[touched].cpu().numpy()).max())
+    # The reference's largest movement from the start (the accumulator starts at 0).
+    table_moved = (ref.embedding.table[touched] - model0.embedding.table[touched]).abs().max().item()
+    acc_moved = ref_acc[touched].abs().max().item()
+    loss_err = max(abs(a - b) for a, b in zip(off_losses, ref_losses))
+    param_err = dense_diff(off, ref)
+    split = {k: v / (MD_STEPS - 1) * 1e3 for k, v in timings.items()}
+    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS["xlarge"] - {"table_update"}}
+    ok = (loss_err <= OFFLOAD_TOL and param_err <= OFFLOAD_TOL
+          and table_err <= OFFLOAD_REL * table_moved and acc_err <= OFFLOAD_REL * acc_moved
+          and table_moved > 0 and acc_moved > 0 and launches == want_off
+          and all(math.isfinite(x) for x in off_losses))
+    emit({"phase": "offload", "arch": "criteo-kaggle/xlarge", "vocab_rows": int(sum(vocab)),
+          "batch": BATCH, "steps": MD_STEPS, "warmup_steps": 1,
+          "losses": off_losses, "losses_on_device": ref_losses, "max_loss_diff": loss_err,
+          "max_dense_param_diff": param_err, "touched_rows": int(touched.numel()),
+          "max_touched_table_diff": table_err, "max_touched_accumulator_diff": acc_err,
+          "max_touched_table_moved": table_moved, "max_touched_accumulator_moved": acc_moved,
+          "touched_table_diff_rel": table_err / max(table_moved, 1e-30),
+          "touched_accumulator_diff_rel": acc_err / max(acc_moved, 1e-30),
+          "step_ms": float(np.mean(more_times)) * 1e3,
+          "step_ms_all": [x * 1e3 for x in off_times + more_times],
+          "on_device_step_ms": float(np.median(ref_times[1:])) * 1e3,
+          "split_ms_per_step": split, "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("the host-offload step disagrees with the on-device step "
+                         "(see the 'offload' line)")
+    add_launches(rows_out, launches)
+    del off, off_state, host, step
+    torch.cuda.empty_cache()
+
+    # 10b: the mesh at world size 1, over an NCCL group of one rank.
+    distributed.start(f"tcp://127.0.0.1:{free_port()}", 1, 0, DEVICE)
+    try:
+        mesh = make_mesh(model=1)
+        m_model = copy.deepcopy(model0)
+        m_state = shard_train_state(init_sparse_train_state(m_model), mesh)
+        step = make_parallel_sparse_train_step(sched, mesh, grad_clip=5.0)
+        reset_launches()
+        m_losses, m_times, _ = run_steps(step, m_state, batches)
+        launches = read_launches()
+        backend = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    loss_err = max(abs(a - b) for a, b in zip(m_losses, ref_losses))
+    param_err = state_diff(m_model, ref)
+    acc_err = (table_accumulator(m_state.opt_state) - ref_acc).abs().max().item()
+    mesh_ms = float(np.median(m_times[1:])) * 1e3
+    ok = (loss_err <= LOSS_TOL and param_err <= PARAM_TOL and acc_err <= PARAM_TOL
+          and launches == want and backend == "nccl")
+    emit({"phase": "mesh", "arch": "criteo-kaggle/xlarge", "world_size": 1, "backend": backend,
+          "mesh": [mesh.data, mesh.model], "batch": BATCH, "steps": MD_STEPS,
+          "losses": m_losses, "losses_one_device": ref_losses, "max_loss_diff": loss_err,
+          "max_param_diff": param_err, "max_accumulator_diff": acc_err,
+          "step_ms": mesh_ms, "step_ms_all": [x * 1e3 for x in m_times],
+          "one_device_step_ms": float(np.median(ref_times[1:])) * 1e3,
+          "phase3_step_ms": main_step_ms, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("the mesh step at world size 1 disagrees with the one-device step "
+                         "(see the 'mesh' line)")
+    add_launches(rows_out, launches)
+    del model0, ref, ref_state, m_model, m_state, batches
+    torch.cuda.empty_cache()
+
+
+def phase_fanout(ckpt: Path, tmp: Path) -> None:
+    """Phase 10d: the search CLI in two processes on the one card against one
+    process (see the module docstring)."""
+    from nasrec_tpu_torch.tools import search_fanout_demo as fanout
+
+    cli = ["-m", "nasrec_tpu_torch.cli.eval_subnet_from_supernet",
+           "--data_source", "synthetic", "--max_train_steps", "5", "--max_eval_steps", "1",
+           "--train_batch_size", str(SN_BATCH), "--method", "random",
+           "--budget", str(FANOUT_CANDIDATES), "--group_size", str(SEARCH_GROUP),
+           "--config", "xlarge", "--num_blocks", str(SN_BLOCKS), "--ckpt_path", str(ckpt),
+           "--test_batch_size", str(SEARCH_TEST_BATCH)]
+    single_s, single_out = fanout.run_single(cli, str(tmp / "fanout1"), DEVICE, 600)
+    pair_s, pair_out = fanout.run_pair(cli, str(tmp / "fanout2"), DEVICE, 600)
+    # The search's own seconds: one process's, and the longer of the pair's
+    # two (each evaluates its own group at the same time as the other).
+    search_s = [fanout.search_seconds(single_out[0]),
+                max(fanout.search_seconds(o) for o in pair_out)]
+    try:
+        n = fanout.compare(str(tmp / "fanout1"), str(tmp / "fanout2"), rel_tol=FANOUT_TOL)
+        ok = n == FANOUT_CANDIDATES
+    except AssertionError as e:
+        n, ok = repr(e)[:300], False
+    emit({"phase": "fanout", "candidates": n, "processes": [1, 2],
+          "wall_seconds": [single_s, pair_s],
+          "wall_seconds_per_candidate": [single_s / FANOUT_CANDIDATES,
+                                         pair_s / FANOUT_CANDIDATES],
+          "search_seconds": search_s,
+          "search_seconds_per_candidate": [x / FANOUT_CANDIDATES for x in search_s],
+          "ok": ok and all(x > 0 for x in search_s)})
+    if not ok:
+        raise SystemExit("the two-process search differs from one process "
+                         "(see the 'fanout' line)")
+
+
+def phase_orbax(tmp: Path) -> None:
+    """Phase 10e: the supernet CLI with --ckpt_backend orbax writes the
+    directory, which reloads into the run's weights bit for bit, and a run
+    resumes from it at its step."""
+    import torch
+
+    from nasrec_tpu_torch.cli import train_supernet
+    from nasrec_tpu_torch.models.transplant import from_jax_params
+    from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint
+
+    base = ["--data_source", "synthetic", "--device", DEVICE, "--config", "xlarge",
+            "--num_blocks", str(SN_BLOCKS), "--use_layernorm", "1",
+            "--train_batch_size", str(SN_BATCH), "--test_batch_size", str(SN_EVAL_BATCH),
+            "--max_eval_steps", "1", "--display_interval", "1",
+            "--supernet_training_steps", str(SN_WARMUP), "--learning_rate", "0.02",
+            "--ckpt_backend", "orbax"]
+    reset_launches()
+    t0 = time.perf_counter()
+    first = train_supernet.main(base + [
+        "--max_train_steps", str(ORBAX_STEPS), "--test_interval", str(ORBAX_STEPS),
+        "--logging_dir", str(tmp / "orbax1")])
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    ckpt_dir = tmp / "orbax1" / "supernet_checkpoint.orbax"
+    t0 = time.perf_counter()
+    ckpt = load_any_checkpoint(str(ckpt_dir))
+    load_s = time.perf_counter() - t0
+    got = from_jax_params(ckpt["params"], first["cfg"])
+    want = first["state"].model.state_dict()
+    exact = all(torch.equal(got[k], want[k].cpu()) for k in want)
+    second = train_supernet.main(base + [
+        "--max_train_steps", "1", "--test_interval", "1",
+        "--logging_dir", str(tmp / "orbax2"), "--checkpoint_path", str(ckpt_dir)])
+    expected = {k: v * ORBAX_STEPS for k, v in SN_STEP_LAUNCHES.items()}
+    for k, v in SN_EVAL_LAUNCHES.items():
+        expected[k] = expected.get(k, 0) + v * len(first["logs"][0]["test_loss"])
+    files = sorted(p.name for p in ckpt_dir.iterdir())
+    ok = (files == ["arrays", "sidecar.json"] and exact and int(ckpt["step"]) == ORBAX_STEPS
+          and second["state"].step == ORBAX_STEPS + 1 and launches == expected
+          and all(math.isfinite(x) for x in second["logs"][0]["train_loss"]))
+    emit({"phase": "orbax", "files": files, "step": int(ckpt["step"]),
+          "resumed_step": second["state"].step, "reload_bit_exact": exact,
+          "seconds": [first_s, load_s], "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("the directory checkpoint did not reload or resume "
+                         "(see the 'orbax' line)")
+
+
 def main() -> int:
     import torch
 
@@ -2721,6 +3012,9 @@ def main() -> int:
         phase_search_rank()
         phase_search_cli(ckpt, tmp)
         phase_profiling(ckpt, tmp, rows_out, hbm_bytes_per_s(smi))
+        phase_multi_device(rows_out, step_ms["xlarge"])
+        phase_fanout(ckpt, tmp)
+        phase_orbax(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     idle = [name for name, row in rows_out.items() if not row.get("launches")]

@@ -9,6 +9,12 @@ from_scratch_results.pickle into --logging_dir.  On the card by default
   python -m nasrec_tpu_torch.cli.eval_subnet_from_scratch --data_source synthetic \\
       --num_subnets 4 --max_train_steps 200 --max_eval_steps 2 \\
       --train_batch_size 512 --test_batch_size 4096 --logging_dir /tmp/scratch_eval
+
+It takes every flag of the JAX CLI but one: --use_final_sigmoid.  The JAX CLI
+accepts that flag (through its shared training flags) and never reads it, so
+its runs ignore it; this CLI rejects it as an unrecognized argument rather
+than accept a flag that changes nothing (ROADMAP.md, Queue C).  Like the JAX
+CLI it takes no multi-process flags.
 """
 
 from __future__ import annotations

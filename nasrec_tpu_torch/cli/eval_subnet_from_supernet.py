@@ -19,8 +19,11 @@ test_loss as gt_test_loss.  --criterion test_loss_penalty_lat with --beta != 0
 adds each candidate's forward latency at --latency_batch_size to its
 objective: --latency_estimator cost-model (the default; counted, nothing
 timed) or measured (timed through the kernels).  --attention_impl as in
-cli/common.py.  Left out until its layer is ported: the multi-process flags
-(the search's cross-process fan-out).
+cli/common.py.  With --num_processes N (and --process_id,
+--coordinator_address on each process) the candidate groups fan out across
+the processes (search/evolution.py :: SearchConfig.distribute): each reads the
+whole stream, evaluates its own groups, and the metrics are exchanged over
+gloo; process 0 writes the results.  N processes may share one card.
 """
 
 from __future__ import annotations
@@ -29,13 +32,20 @@ import argparse
 import os
 import pickle
 
-from nasrec_tpu_torch.cli.common import add_attention_impl_arg, add_data_args, data_options
+from nasrec_tpu_torch.cli.common import (
+    add_attention_impl_arg,
+    add_data_args,
+    add_distributed_args,
+    data_options,
+    maybe_initialize_distributed,
+)
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_data_args(p, train_bs=512, test_bs=8192)
+    add_distributed_args(p)
     p.add_argument("--method", default="regularized-ea",
                    choices=["regularized-ea", "random", "cached"])
     p.add_argument("--choice_from_pickle_file", default=None,
@@ -82,6 +92,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed(args)
     from nasrec_tpu_torch.workloads import (
         SearchOptions,
         evaluate_choices_from_supernet,
@@ -105,7 +116,8 @@ def main(argv=None):
         device=args.device,
     )
     if args.method != "cached":
-        return search_from_supernet(so, data_options(args), logging_dir=args.logging_dir)
+        return search_from_supernet(so, data_options(args, globalized=False),
+                                    logging_dir=args.logging_dir)
     # Re-score an explicit candidate pickle against the supernet: the
     # reference's rank-correlation workflow (ref:
     # eval_subnet_from_supernet.py:252-283, flag :356).
@@ -117,7 +129,7 @@ def main(argv=None):
     choices = [r["choice"] if isinstance(r, dict) and "choice" in r else r for r in records]
     print(f"Evaluating {len(choices)} subnets from record file: "
           f"{args.choice_from_pickle_file}")
-    results = evaluate_choices_from_supernet(choices, so, data_options(args))
+    results = evaluate_choices_from_supernet(choices, so, data_options(args, globalized=False))
     for rec, res in zip(records, results):
         if isinstance(rec, dict) and "test_loss" in rec:
             res["gt_test_loss"] = rec["test_loss"]

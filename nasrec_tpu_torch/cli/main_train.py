@@ -8,6 +8,15 @@ Example (on the card; add --device cpu to run on the CPU):
 
 --net supernet trains the full path of the xlarge supernet (7 blocks, LayerNorm
 on) through workloads.train_supernet, as the JAX CLI does.
+
+Several processes (one per card, or on the CPU with --device cpu and gloo):
+every process runs the same command with --num_processes N --process_id i
+--coordinator_address host:port and --mesh_model M (the table row-sharded
+over M ranks, the batch over N / M); e.g. two processes on the CPU:
+  python -m nasrec_tpu_torch.cli.main_train --arch criteo-kaggle/xlarge \
+      --data_source synthetic --device cpu --train_batch_size 64 \
+      --num_processes 2 --process_id 0 --coordinator_address 127.0.0.1:29500 \
+      --mesh_model 2
 """
 
 from __future__ import annotations
@@ -17,17 +26,21 @@ import argparse
 from nasrec_tpu_torch.choices import load_choice_file
 from nasrec_tpu_torch.cli.common import (
     add_data_args,
+    add_distributed_args,
     add_train_args,
     data_options,
+    maybe_initialize_distributed,
     train_options,
 )
 from nasrec_tpu_torch.configs import get_best_arch
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     add_data_args(p)
     add_train_args(p, lr=0.16)
+    add_distributed_args(p)
     p.add_argument("--net", default="supernet-config",
                    choices=["supernet", "supernet-config"])
     p.add_argument("--supernet_config", default=None,
@@ -43,6 +56,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed(args)   # before any other work
     from nasrec_tpu_torch.workloads import SupernetOptions, train_fixed_subnet, train_supernet
 
     if args.net == "supernet":

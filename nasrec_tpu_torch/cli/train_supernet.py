@@ -12,8 +12,11 @@ the CPU):
 
 Writes configs_args.json, train_test_logs.{json,pickle}, metrics.jsonl and
 supernet_checkpoint.pkl (the JAX package's layout) into --logging_dir;
---checkpoint_path resumes from such a checkpoint at its step.  The
-multi-process flags of the JAX CLI come with the mesh branch.
+--checkpoint_path resumes from such a checkpoint at its step (a pickle, or
+the directory that --ckpt_backend orbax writes).  The multi-process flags
+(--num_processes, --process_id, --coordinator_address, --host_id,
+--num_hosts) run several processes over a --mesh_model mesh, as in
+cli/main_train.py.
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ import argparse
 
 from nasrec_tpu_torch.cli.common import (
     add_data_args,
+    add_distributed_args,
     add_train_args,
     data_options,
+    maybe_initialize_distributed,
     train_options,
 )
 
@@ -33,6 +38,7 @@ def build_parser():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_data_args(p, train_bs=512, test_bs=4096)
     add_train_args(p, lr=0.12)
+    add_distributed_args(p)
     p.add_argument("--config", default="xlarge",
                    choices=["xlarge", "xlarge-zeros", "autoctr"])
     p.add_argument("--num_blocks", type=int, default=7)
@@ -63,6 +69,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed(args)   # before any other work
     from nasrec_tpu_torch.workloads import SupernetOptions, train_supernet
 
     sn = SupernetOptions(

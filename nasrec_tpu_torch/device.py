@@ -1,12 +1,15 @@
 """Device selection for the port's entry points.
 
 Entry points run on the card unless the caller asks for the CPU.  A request
-for CUDA on a machine without a card raises instead of falling back.
+for CUDA on a machine without a card raises instead of falling back.  Under a
+torch.distributed process group, "cuda" is card `rank % count`: each rank its
+own card where there are several, every rank card 0 on a one-card machine.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -18,4 +21,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         )
     if d.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if d.type == "cuda" and d.index is None and dist.is_initialized():
+        return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
     return d

@@ -15,9 +15,11 @@ Algorithm parity with the reference Searcher
     the TuNAS-style latency penalty loss + beta*(lat/target - 1) (:65-73).
 
 Candidates are evaluated in groups of `group_size` (see worker.py), one
-group after another on one device.  The cross-process fan-out of candidate
-groups (`SearchConfig.distribute`) is not yet ported and is refused when the
-Searcher is built.
+group after another on one device, or fanned out across processes
+(`SearchConfig.distribute`): group g goes to rank g % world, and one
+all-gather over the gloo host group (parallel/distributed.py) exchanges the
+metrics, so every rank holds the same result list and the seeded search
+stays in lockstep with a one-process run.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from nasrec_tpu_torch.choices import Choice
+from nasrec_tpu_torch.parallel.distributed import host_group, host_info
 from nasrec_tpu_torch.search.tokenizer import Tokenizer
 
 
@@ -38,8 +43,11 @@ class SearchConfig:
     target_latency: float = -1.0
     group_size: int = 8          # candidates per evaluation group
     seed: Optional[int] = None
-    # Cross-process fan-out of candidate groups (the JAX package's
-    # process_allgather exchange): not yet ported (ROADMAP.md, Queue A item 7).
+    # Cross-process fan-out (ref: nasrec/searcher/searcher.py:126-156 spawns
+    # one mp.Process per candidate, one GPU each): when True and more than
+    # one process is up, each generation's candidate groups are
+    # round-robined across the ranks, each rank evaluates its own groups, and
+    # the numeric results are exchanged with one all-gather.
     distribute: bool = False
 
 
@@ -57,10 +65,6 @@ class Searcher:
     ):
         if config.criterion not in self.VALID_CRITERIA:
             raise NotImplementedError(f"criterion {config.criterion}")
-        if config.distribute:
-            raise NotImplementedError(
-                "the search's cross-process fan-out (SearchConfig.distribute=True) is "
-                "not yet ported to nasrec_tpu_torch (see ROADMAP.md, Queue A)")
         self.eval_fn = eval_fn
         self.tokenizer = tokenizer
         self.config = config
@@ -89,10 +93,54 @@ class Searcher:
 
     def _evaluate(self, choices: Sequence[Choice]) -> List[Dict]:
         gs = max(1, self.config.group_size)
+        groups = [list(choices[i : i + gs]) for i in range(0, len(choices), gs)]
+        if self.config.distribute and host_info()[1] > 1:
+            return self._evaluate_distributed(groups, choices)
         out: List[Dict] = []
-        for i in range(0, len(choices), gs):
-            out.extend(self.eval_fn(list(choices[i : i + gs])))
+        for g in groups:
+            out.extend(self.eval_fn(g))
         return out
+
+    # Numeric fields exchanged across processes; every other result key
+    # (the choice itself) is rebuilt alike on every rank from the shared
+    # seeded RNG.
+    _EXCHANGE_FIELDS = ("test_loss", "test_acc", "test_auroc", "latency")
+
+    def _evaluate_distributed(
+        self, groups: List[List[Choice]], choices: Sequence[Choice]
+    ) -> List[Dict]:
+        """Group g goes to rank g % world; the float metrics come back in one
+        all-gather of an [n, fields + 1] float64 matrix over the gloo host
+        group (disjoint rows summed, a missing field as NaN, the last column
+        counting fills), so every rank returns the same results in the
+        one-process order."""
+        rank, world = host_info()
+        n, nf = len(choices), len(self._EXCHANGE_FIELDS)
+        mat = np.zeros((n, nf + 1), np.float64)
+        row0 = np.cumsum([0] + [len(g) for g in groups])
+        for gi, g in enumerate(groups):
+            if gi % world != rank:
+                continue
+            for j, r in enumerate(self.eval_fn(g)):
+                row = row0[gi] + j
+                mat[row, :nf] = [r.get(f, np.nan) for f in self._EXCHANGE_FIELDS]
+                mat[row, nf] = 1.0
+        mine = torch.from_numpy(mat)
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(parts, mine, group=host_group())
+        total = torch.stack(parts).sum(dim=0).numpy()
+        if not (total[:, nf] == 1.0).all():
+            raise RuntimeError("distributed evaluation left candidate rows unfilled or "
+                               f"double-filled: fill counts {total[:, nf]}")
+        results: List[Dict] = []
+        for i, choice in enumerate(choices):
+            r: Dict = {"choice": choice}
+            for k, f in enumerate(self._EXCHANGE_FIELDS):
+                v = total[i, k]
+                if not np.isnan(v):
+                    r[f] = float(v)
+            results.append(r)
+        return results
 
     # -- algorithms ----------------------------------------------------------
 

@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from nasrec_tpu_torch.parallel.embedding import sharded_lookup
+from nasrec_tpu_torch.parallel.mesh import Mesh
 from nasrec_tpu_torch.train.metrics import auc_exact, bce_with_logits, binary_accuracy, stable_sigmoid
 from nasrec_tpu_torch.train.optim import Optimizer, global_norm_scale, l2_penalty
 
@@ -80,6 +82,24 @@ def freeze_mask(model: torch.nn.Module, mode: str) -> Dict[str, bool]:
     return {name: decide(name) for name, _ in model.named_parameters()}
 
 
+def resolve_masks(masks, has_masks: bool):
+    """A step's masks as the model takes them: a `ChoiceMasks`, or the
+    `(buffer, idx)` pair of a DeviceMaskBuffer selected on the device."""
+    if has_masks and masks is None:
+        raise ValueError("this step was made with has_masks=True: pass masks")
+    if isinstance(masks, tuple):      # (device mask buffer, index)
+        buffer, buf_idx = masks
+        return buffer.select(buf_idx)
+    return masks
+
+
+def forward_embedded(model, dense, stem, masks, impl, compute_dtype, has_masks: bool):
+    """The model's forward from a looked-up stem, with masks for a supernet."""
+    if has_masks:
+        return model.forward_embedded(dense, stem, masks, impl, compute_dtype)
+    return model.forward_embedded(dense, stem, impl, compute_dtype)
+
+
 def make_train_step(
     optimizer: Optimizer,
     lr_schedule: Callable[[int], float],
@@ -91,6 +111,7 @@ def make_train_step(
     has_masks: bool = False,
     trainable: Optional[Mapping[str, bool]] = None,
     compute_dtype: torch.dtype = torch.float32,
+    mesh: Optional[Mesh] = None,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in
     place: BCE plus `l2_reg` times the squared norm of every parameter with
@@ -105,14 +126,20 @@ def make_train_step(
     (index_select -> index_add_) plus the L2 term.  `masks` as in the sparse
     step: a `ChoiceMasks` or the `(buffer, idx)` pair of a DeviceMaskBuffer.
     impl='auto' runs the hand-written kernels on the card and their plain
-    versions on the CPU; impl='plain' names the plain versions."""
+    versions on the CPU; impl='plain' names the plain versions.
+
+    With a `mesh` (parallel/mesh.py) the state is one placed by
+    `parallel.train.shard_train_state`: the table is this rank's row shard,
+    looked up through `parallel.embedding.sharded_lookup`, and its gradient
+    stays local.  Every gradient is averaged over the data ranks (the loss is
+    the global batch's mean), the clip sums the table shards' squared norms
+    over the model ranks and counts the replicated parameters once, and the
+    reported loss and L2 are the global ones.  Without one (or on a 1 x 1
+    mesh) every collective is the identity."""
+    mesh = mesh or Mesh(1, 1)
 
     def step(state: TrainState, dense, cat, y, masks=None):
-        if has_masks and masks is None:
-            raise ValueError("this step was made with has_masks=True: pass masks")
-        if isinstance(masks, tuple):      # (device mask buffer, index)
-            buffer, buf_idx = masks
-            masks = buffer.select(buf_idx)
+        masks = resolve_masks(masks, has_masks)
         model = state.model
         named = list(model.named_parameters())
         # The table's Parameter is not differentiated by the sparse step; here
@@ -120,36 +147,45 @@ def make_train_step(
         table = model.embedding.table.detach().requires_grad_(
             trainable is None or trainable[TABLE])
         leaves = [(n, table if n == TABLE else p) for n, p in named]
-        idx = model.embedding.fused_index(cat)
-        stem = table.index_select(0, idx.reshape(-1)).reshape(idx.shape[0], -1)
-        if has_masks:
-            logits = model.forward_embedded(dense, stem, masks, impl, compute_dtype)
-        else:
-            logits = model.forward_embedded(dense, stem, impl, compute_dtype)
+        stem = sharded_lookup(table, model.embedding.fused_index(cat), mesh)
+        logits = forward_embedded(model, dense, stem, masks, impl, compute_dtype, has_masks)
         bce = bce_with_logits(logits, y)
-        l2 = l2_penalty(leaves, l2_reg, l2_exclude)
+        # The table's L2 term apart: under a mesh each rank holds a shard.
+        l2_rest = l2_penalty([(n, p) for n, p in leaves if n != TABLE], l2_reg, l2_exclude)
+        l2_table = l2_penalty([(TABLE, table)], l2_reg, l2_exclude)
         live = [i for i, (n, _) in enumerate(leaves) if trainable is None or trainable[n]]
         # A block whose outputs no later block reads leaves its parameters out
         # of the graph: their gradient is zero, as in the JAX step.
-        got = torch.autograd.grad(bce + l2, [leaves[i][1] for i in live],
+        got = torch.autograd.grad(bce + l2_rest + l2_table, [leaves[i][1] for i in live],
                                   allow_unused=True, materialize_grads=True)
         with torch.no_grad():
             grads = dict(zip(live, got))
             grads = [grads[i] if i in grads else torch.zeros_like(p)
                      for i, (_, p) in enumerate(leaves)]
+            mesh.mean_over_data_(grads)
             if grad_clip is not None:
-                sq = torch.stack([torch.sum(torch.square(g)) for g in grads]).sum()
-                scale = global_norm_scale(sq, grad_clip)
+                ti = [n for n, _ in leaves].index(TABLE)
+                sq_rest = torch.stack([torch.sum(torch.square(g))
+                                       for i, g in enumerate(grads) if i != ti]).sum()
+                sq_table = mesh.sum_over_model_(torch.sum(torch.square(grads[ti])).reshape(1))
+                scale = global_norm_scale(sq_rest + sq_table[0], grad_clip)
                 grads = [g * scale for g in grads]
             lr = float(lr_schedule(state.step))
             optimizer.update_(state.opt_state, [n for n, _ in named],
                               [p for _, p in named], grads, lr)
+            loss = bce.detach().clone()
+            mesh.mean_over_data_([loss])
+            l2 = l2_rest.detach() + mesh.sum_over_model_(l2_table.detach().reshape(1).clone())[0]
         state.step += 1
-        metrics = {"loss": bce.detach(), "l2": l2.detach(), "lr": lr,
-                   "logits": logits.detach()}
+        metrics = {"loss": loss, "l2": l2, "lr": lr, "logits": logits.detach()}
         return state, metrics
 
     return step
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor (logits of any float dtype, labels) as float32 host numpy."""
+    return t.detach().float().cpu().numpy()
 
 
 def snapshot_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -177,17 +213,21 @@ def evaluate_one_epoch(
     *,
     masks=None,
     max_steps: int = -1,
+    fetch: Optional[Callable] = None,
 ) -> Tuple[float, float, float]:
     """Full-split eval -> (accuracy, auroc, logloss) (ref: train_utils.py:129-178).
-    `masks`: None (fixed mode), masks, or a callable sampled once per batch."""
+    `masks`: None (fixed mode), masks, or a callable sampled once per batch.
+    `fetch` (tensor -> host numpy; `host_array` by default) is what a mesh
+    replaces to gather the logits and labels of every data rank."""
+    fetch = fetch or host_array
     all_logits, all_labels = [], []
     for i, (dense, cat, y) in enumerate(test_iter):
         if max_steps != -1 and i >= max_steps:
             break
         m = masks() if callable(masks) else masks
         logits = eval_step(model, dense, cat) if m is None else eval_step(model, dense, cat, m)
-        all_logits.append(logits.float().cpu().numpy().ravel())
-        all_labels.append(y.cpu().numpy().ravel())
+        all_logits.append(fetch(logits).ravel())
+        all_labels.append(fetch(y).ravel())
     if not all_logits:
         raise ValueError(
             "eval iterator produced no batches — is test_batch_size larger "
@@ -222,8 +262,10 @@ def train_and_test_one_epoch(
     keep_best: bool = True,
     log_fn: Callable[[str], None] = print,
     metrics_writer=None,                   # optional train.logging.MetricsWriter
+    fetch: Optional[Callable] = None,      # tensor -> host numpy (evaluate_one_epoch)
 ) -> Tuple[TrainState, Dict[str, list], Optional[Any]]:
     """One epoch of interleaved train/eval -> (state, logs, best_params)."""
+    fetch = fetch or host_array
     logs: Dict[str, list] = {
         "train_loss": [], "train_AUROC": [], "train_Accuracy": [],
         "test_loss": [], "test_AUROC": [], "test_Accuracy": [],
@@ -251,8 +293,8 @@ def train_and_test_one_epoch(
                 logs["test_AUROC"].append(-1)
                 logs["test_Accuracy"].append(-1)
                 return state, logs, best_params
-            logits = metrics["logits"].float().cpu().numpy().ravel()
-            labels = y.cpu().numpy().ravel()
+            logits = fetch(metrics["logits"]).ravel()
+            labels = fetch(y).ravel()
             probs = stable_sigmoid(logits)
             train_auroc = auc_exact(labels, probs)
             train_acc = binary_accuracy(probs, labels)
@@ -280,7 +322,7 @@ def train_and_test_one_epoch(
             t0 = time.time()
             acc, auroc, tloss = evaluate_one_epoch(
                 eval_step, state.model, make_test_iter(), masks=eval_masks,
-                max_steps=max_eval_steps,
+                max_steps=max_eval_steps, fetch=fetch,
             )
             log_fn(f"TEST acc {acc:.4f} auroc {auroc:.4f} loss {tloss:.6f} "
                    f"({time.time() - t0:.1f}s)")

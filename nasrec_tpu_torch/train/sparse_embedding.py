@@ -28,7 +28,15 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
-from nasrec_tpu_torch.train.loop import TABLE, TrainState, init_train_state
+from nasrec_tpu_torch.parallel.embedding import sharded_lookup
+from nasrec_tpu_torch.parallel.mesh import Mesh
+from nasrec_tpu_torch.train.loop import (
+    TABLE,
+    TrainState,
+    forward_embedded,
+    init_train_state,
+    resolve_masks,
+)
 from nasrec_tpu_torch.train.metrics import bce_with_logits
 from nasrec_tpu_torch.train.optim import (
     Optimizer,
@@ -108,6 +116,7 @@ def make_sparse_embedding_train_step(
     microbatch: int = 1,
     compute_dtype: torch.dtype = torch.float32,
     table_impl: Optional[str] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
@@ -129,35 +138,42 @@ def make_sparse_embedding_train_step(
 
     `compute_dtype` is the activations' dtype (train/loop.py); the stem's
     gradient comes back through the model's cast as float32, so the
-    segment-sum, the clip and the table update stay float32."""
+    segment-sum, the clip and the table update stay float32.
+
+    With a `mesh` (parallel/mesh.py; the JAX package's
+    `make_parallel_sparse_train_step`) the state is one placed by
+    `parallel.train.shard_train_state` and B is this rank's rows.  The stem
+    is looked up through the table shards (`parallel.embedding
+    .sharded_lookup`); the other gradients are averaged over the data ranks;
+    the stem gradients (divided by the data size: the loss is the global
+    batch's mean) and the indices are all-gathered over the data ranks, so
+    that one segment-sum and one clip see the whole batch, the same on every
+    rank; and each model rank updates the rows it owns through the kernel's
+    `row_offset`, skipping the other shards' positions.  Without one (or on
+    a 1 x 1 mesh) every collective is the identity."""
     optimizer = optimizer or make_optimizer("adagrad")
     table_impl = impl if table_impl is None else table_impl
+    mesh = mesh or Mesh(1, 1)
 
     def step(state: TrainState, dense, cat, y, masks=None):
-        if has_masks and masks is None:
-            raise ValueError("this step was made with has_masks=True: pass masks")
-        if isinstance(masks, tuple):      # (device mask buffer, index)
-            buffer, buf_idx = masks
-            masks = buffer.select(buf_idx)
+        masks = resolve_masks(masks, has_masks)
         model = state.model
         table = model.embedding.table
         named = [(n, p) for n, p in model.named_parameters() if n != TABLE]
         rest = [(n, p) for n, p in named if trainable is None or trainable[n]]
         train_table = trainable is None or trainable[TABLE]
         idx = model.embedding.fused_index(cat)                       # [B, S] int32
-        b, s = idx.shape
+        b = idx.shape[0]
         if b % microbatch:
             raise ValueError(f"batch {b} not divisible by microbatch {microbatch}")
         rows_per = b // microbatch
 
         def forward_backward(sl):
             with torch.no_grad():
-                looked = table.index_select(0, idx[sl].reshape(-1))  # [b*S, E]
-            stem = looked.reshape(looked.shape[0] // s, -1).requires_grad_(train_table)
-            if has_masks:
-                logits = model.forward_embedded(dense[sl], stem, masks, impl, compute_dtype)
-            else:
-                logits = model.forward_embedded(dense[sl], stem, impl, compute_dtype)
+                looked = sharded_lookup(table, idx[sl], mesh)        # [b, S*E]
+            stem = looked.requires_grad_(train_table)
+            logits = forward_embedded(model, dense[sl], stem, masks, impl, compute_dtype,
+                                      has_masks)
             bce = bce_with_logits(logits, y[sl])
             l2 = l2_penalty(named, l2_reg, l2_exclude)
             # A block whose outputs no later block reads leaves its parameters
@@ -186,9 +202,13 @@ def make_sparse_embedding_train_step(
                 g_rest = [g * inv_m for g in g_rest]
                 # Slices stack in the full batch's row order, as idx does.
                 d_stem = [torch.cat([x[3][n_rest] for x in slices]) * inv_m] if train_table else []
+            mesh.mean_over_data_(g_rest)
             if train_table:
+                d_all = d_stem[0]
+                if mesh.data > 1:
+                    d_all = mesh.gather_over_data(d_all / mesh.data)
                 rows, seg, _ = rowwise_segment_sum_slotwise(
-                    idx, d_stem[0].reshape(-1, table.shape[1]))
+                    mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]))
             if grad_clip is not None:
                 sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
                 if train_table:
@@ -204,7 +224,12 @@ def make_sparse_embedding_train_step(
                               [p for _, p in rest], g_rest, lr)
             if train_table:
                 sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
-                                            rows, seg, lr, adagrad_eps, impl=table_impl)
+                                            rows, seg, lr, adagrad_eps,
+                                            row_offset=mesh.model_index * table.shape[0],
+                                            impl=table_impl)
+            if mesh.data > 1:
+                bce = bce.clone()
+                mesh.mean_over_data_([bce])
         state.step += 1
         metrics = {"loss": bce, "l2": l2, "lr": lr, "logits": logits}
         return state, metrics

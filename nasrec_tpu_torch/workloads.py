@@ -1,7 +1,6 @@
-"""The four workloads as library functions (port of `nasrec_tpu/workloads.py`,
-single-device branches): fixed-subnet training, supernet training, the
-weight-shared search over a trained supernet, and the subnet-from-scratch
-evaluation.
+"""The four workloads as library functions (port of `nasrec_tpu/workloads.py`):
+fixed-subnet training, supernet training, the weight-shared search over a
+trained supernet, and the subnet-from-scratch evaluation.
 
 Ported: data from TSV shards (the C++ parser, a prefetch thread and a copy to
 the card on a side stream, data/pipeline.py) or synthetic; the
@@ -19,9 +18,17 @@ measured through the kernels or estimated by the cost model of
 package loads the other's) and `metrics.jsonl`; `report_flops` (a FLOPs and
 parameters line, and the model's graph as text), `profile_dir` (a
 torch.profiler trace) and `attention_impl` (kernels or plain versions for the
-dot-product and transformer nodes).  Not yet ported, and rejected up front
-with an error that says so: the mesh branch, the host-offload branch and
-orbax checkpoints.  The search, as in the JAX package, runs in float32.
+dot-product and transformer nodes).  The multi-device branches, as in the
+JAX package: `mesh_model > 0` trains over a (data, model) mesh of processes
+(parallel/: the table row-sharded over the model ranks, the batch over the
+data ranks, the sparse or the dense step), which several processes need;
+`place_embedding_on_cpu` keeps the table and its accumulator in host RAM
+(parallel/host_embedding.py); `ckpt_backend="orbax"` writes a directory
+checkpoint (train/checkpoint.py).  Under several processes only rank 0
+writes files, and the search fans its candidate groups out across the
+ranks.  The refusals are the JAX package's, with its reasons
+(`_validate_train_options`).  The search, as in the JAX package, runs in
+float32.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
 from nasrec_tpu_torch.data.pipeline import device_prefetch, make_dataset_iterators
 from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
-from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint
+from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint, table_offsets
 from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_apply, fixed_init
 from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
 from nasrec_tpu_torch.models.transplant import (
@@ -50,17 +57,36 @@ from nasrec_tpu_torch.models.transplant import (
     to_jax_opt_state,
     to_jax_params,
 )
+from nasrec_tpu_torch.parallel.distributed import host_info
+from nasrec_tpu_torch.parallel.host_embedding import (
+    HostEmbedding,
+    detach_table,
+    make_host_offload_eval_step,
+    make_host_offload_train_step,
+)
+from nasrec_tpu_torch.parallel.mesh import make_mesh
+from nasrec_tpu_torch.parallel.train import make_sharded_eval_step, shard_train_state
 from nasrec_tpu_torch.sampling import ChoiceSampler, DeviceMaskBuffer
 from nasrec_tpu_torch.search import SearchConfig, Searcher, Tokenizer, make_candidate_evaluator
-from nasrec_tpu_torch.train.checkpoint import load_any_checkpoint, save_checkpoint_any
+from nasrec_tpu_torch.train.checkpoint import (
+    as_opt_state,
+    load_any_checkpoint,
+    save_checkpoint_any,
+)
 from nasrec_tpu_torch.train.logging import MetricsWriter
 from nasrec_tpu_torch.train.loop import (
+    TABLE,
     init_train_state,
     make_eval_step,
     make_train_step,
     train_and_test_one_epoch,
 )
-from nasrec_tpu_torch.train.optim import copy_state_, make_lr_schedule, make_optimizer
+from nasrec_tpu_torch.train.optim import (
+    copy_state_,
+    make_lr_schedule,
+    make_optimizer,
+    slot_dicts,
+)
 from nasrec_tpu_torch.train.sparse_embedding import (
     init_sparse_train_state,
     make_sparse_embedding_train_step,
@@ -106,6 +132,9 @@ class TrainOptions:
     activation: str = "relu"
     seed: int = 0
     logging_dir: Optional[str] = None
+    # >0: train over a (data, model) mesh of every process with this model
+    # size (parallel/): the table row-sharded over the model ranks, the batch
+    # over the data ranks.  Several processes need it.
     mesh_model: int = 0
     # "bfloat16" (or "bf16") runs the model's activations in bf16; the
     # parameters, table, optimizer state and logits stay float32.
@@ -116,7 +145,10 @@ class TrainOptions:
     # the plain versions on the CPU), "xla" (the plain versions), "pallas"
     # (the kernels; raises on the CPU).  The JAX package's names.
     attention_impl: str = "auto"
+    # The table and its Adagrad accumulator in host RAM; the card gets the
+    # looked-up stem and returns its gradient (parallel/host_embedding.py).
     place_embedding_on_cpu: bool = False
+    # "pickle" (one file) or "orbax" (a directory: arrays/ and sidecar.json).
     ckpt_backend: str = "pickle"
     # "auto": the sparse-embedding step for adagrad with wd = 0, else the
     # dense-gradient step; True / False force one (True with another
@@ -127,11 +159,6 @@ class TrainOptions:
     # train_supernet refuses "sweep", as the JAX package does.
     table_update: str = "auto"
     device: str = "cuda"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to nasrec_tpu_torch "
-                               "(see ROADMAP.md, Queue A)")
 
 
 def _validate_data(data: DataOptions) -> None:
@@ -174,13 +201,51 @@ def _use_sparse_embedding(train: TrainOptions) -> bool:
     return train.optimizer == "adagrad" and train.wd == 0.0
 
 
+def _validate_train_options(train: TrainOptions) -> None:
+    """Reject conflicting option combinations up front (the JAX package's
+    refusals, with its reasons)."""
+    if train.ckpt_backend == "orbax" and host_info()[1] > 1:
+        raise ValueError(
+            "ckpt_backend='orbax' is not supported under multi-process runs: "
+            "the end-of-run writers run on process 0 only, and a collective "
+            "checkpoint save would deadlock with a single caller — use "
+            "ckpt_backend='pickle' (its per-host sharded variant lives in "
+            "nasrec_tpu_torch/parallel)"
+        )
+    if train.mesh_model > 0 and train.place_embedding_on_cpu:
+        raise ValueError(
+            "place_embedding_on_cpu and mesh_model are mutually exclusive: "
+            "the mesh path shards the table over device memory"
+        )
+    if (train.mesh_model > 0 and train.micro_batches > 1
+            and not _use_sparse_embedding(train)):
+        raise ValueError(
+            "micro_batches > 1 with mesh_model requires the sparse-embedding "
+            "path (adagrad, wd=0 or sparse_embedding=True); the dense mesh "
+            "step has no gradient-accumulation support"
+        )
+    if train.place_embedding_on_cpu and train.micro_batches > 1:
+        raise ValueError(
+            "micro_batches > 1 is not supported with place_embedding_on_cpu"
+        )
+    if train.place_embedding_on_cpu and train.optimizer != "adagrad":
+        raise ValueError(
+            "place_embedding_on_cpu trains the host table with Adagrad "
+            f"(ref semantics); optimizer={train.optimizer!r} would silently "
+            "diverge from the on-device run — use adagrad or keep the table "
+            "on device"
+        )
+    if train.place_embedding_on_cpu and train.wd > 0.0:
+        raise ValueError(
+            "place_embedding_on_cpu cannot apply the L2 loss term to the "
+            "host-resident table (that would be a dense full-table update "
+            "per step); wd > 0 would silently diverge from the on-device "
+            "run — use wd=0 with offload"
+        )
+
+
 def _validate(data: DataOptions, train: TrainOptions) -> None:
-    if train.mesh_model > 0:
-        raise _not_ported("the mesh branch (--mesh_model > 0)")
-    if train.place_embedding_on_cpu:
-        raise _not_ported("the host-offload branch (--place_embedding_on_cpu)")
-    if train.ckpt_backend == "orbax":
-        raise _not_ported("orbax checkpoints (--ckpt_backend orbax)")
+    _validate_train_options(train)
     _compute_dtype(train)
     _model_impl(train.attention_impl)
     if train.micro_batches < 1:
@@ -191,6 +256,86 @@ def _validate(data: DataOptions, train: TrainOptions) -> None:
                          "(adagrad with wd = 0, or sparse_embedding=True)")
     make_optimizer(train.optimizer)
     _validate_data(data)
+
+
+def _multi_process_check(train: TrainOptions) -> bool:
+    """True under several processes, which need the mesh."""
+    if host_info()[1] <= 1:
+        return False
+    if train.mesh_model <= 0:
+        raise ValueError(
+            "multi-process training requires --mesh_model > 0 (the "
+            "(data, model) mesh is what the per-process batch shards "
+            "are assembled onto)"
+        )
+    return True
+
+
+def _globalize_iterators(mesh, train_iter_fn, test_iter_fn, *, slice_local: bool):
+    """Multi-process batches: each rank feeds the rows of its data index.
+    slice_local=True is the replicated stream (synthetic data: every rank
+    makes the same global batch) — a rank keeps rows
+    [data_index * B / data, (data_index + 1) * B / data), so the data ranks
+    together feed the one-process batch.  slice_local=False is the
+    host-sharded stream (TSV: each data index reads its own shards) — the
+    local batch is the rank's part as it comes.  The ranks of one data row
+    feed the same rows.  Every rank must yield the same number of batches
+    (the steps are collective)."""
+
+    def local(x):
+        if not slice_local:
+            return x
+        if x.shape[0] % mesh.data:
+            raise ValueError(
+                f"replicated batch of {x.shape[0]} rows does not divide across "
+                f"{mesh.data} data ranks — use a batch size that is a multiple "
+                "of the data size")
+        per = x.shape[0] // mesh.data
+        return x[mesh.data_index * per:(mesh.data_index + 1) * per]
+
+    def wrap(it_fn):
+        def wrapped(*a, **k):
+            for batch in it_fn(*a, **k):
+                yield tuple(local(x) for x in batch)
+        return wrapped
+
+    return wrap(train_iter_fn), wrap(test_iter_fn)
+
+
+def _full_table(t: torch.Tensor, mesh, rows: int):
+    """A table (or a slot of it) gathered from the model ranks, without the
+    sharding pad (checkpoints hold exactly sum(vocab) rows), as host numpy
+    (collective)."""
+    return mesh.gather_rows(t.detach())[:rows].cpu().numpy()
+
+
+def _with_table(tree: Dict, table) -> Dict:
+    out = dict(tree)
+    out["embedding"] = {**tree["embedding"], "table": table}
+    return out
+
+
+def _saved_state(state, rows: int, mesh=None, host_emb=None, with_opt: bool = True):
+    """The JAX package's (params, opt_state) pytrees of a run's state, the
+    table whole: gathered from a mesh's model ranks and unpadded, or taken
+    from host RAM (its accumulator as the table's slot of an Adagrad state).
+    Collective under a mesh."""
+    params = to_jax_params(state.model)
+    opt = to_jax_opt_state(state.model, state.opt_state) if with_opt else None
+    if mesh is not None:
+        params = _with_table(params, _full_table(state.model.embedding.table, mesh, rows))
+        if with_opt:
+            tables = [_full_table(sl[TABLE], mesh, rows) for sl in slot_dicts(state.opt_state)]
+            if isinstance(opt, dict):
+                opt = _with_table(opt, tables[0])
+            else:
+                opt = type(opt)(*[_with_table(t, tab) if isinstance(t, dict) else t
+                                  for t, tab in zip(opt, tables + [None])])
+    elif host_emb is not None:
+        params = _with_table(params, host_emb.table)
+        if with_opt:
+            opt = _with_table(opt, host_emb.acc)
+    return params, opt
 
 
 def _train_steps_per_epoch(data: DataOptions, train: TrainOptions) -> int:
@@ -248,19 +393,36 @@ def _make_iterators(data: DataOptions, device):
             lambda: device_prefetch(host_test(), device))
 
 
-def _make_step(train: TrainOptions, sched, **kw):
-    """The sparse-embedding step or the dense-gradient step, by
-    `_use_sparse_embedding`, with its fresh state's optimizer."""
+def _make_steps(train: TrainOptions, sched, mesh=None, has_masks: bool = False):
+    """(optimizer, train step, eval step): the sparse-embedding step or the
+    dense-gradient step, by `_use_sparse_embedding`, on one device or over
+    the mesh, with its fresh state's optimizer."""
     opt = make_optimizer(train.optimizer)
+    impl, cdt = _model_impl(train.attention_impl), _compute_dtype(train)
     common = dict(grad_clip=train.grad_clip, l2_reg=train.wd,
-                  l2_exclude=train.no_reg_param_name, compute_dtype=_compute_dtype(train),
-                  impl=_model_impl(train.attention_impl), **kw)
+                  l2_exclude=train.no_reg_param_name, compute_dtype=cdt, impl=impl,
+                  has_masks=has_masks, mesh=mesh)
     if _use_sparse_embedding(train):
         # attention_impl picks the nodes' impl; the table update, as in the
         # JAX package, is not switched by it.
-        return opt, make_sparse_embedding_train_step(
+        step = make_sparse_embedding_train_step(
             sched, optimizer=opt, microbatch=train.micro_batches, table_impl="auto", **common)
-    return opt, make_train_step(opt, sched, **common)
+    else:
+        step = make_train_step(opt, sched, **common)
+    if mesh is not None:
+        return opt, step, make_sharded_eval_step(mesh, impl, has_masks, cdt)
+    return opt, step, make_eval_step(impl=impl, has_masks=has_masks, compute_dtype=cdt)
+
+
+def _offload_steps(train: TrainOptions, sched, host_emb, has_masks: bool = False):
+    """(optimizer, train step, eval step) with the table in host RAM."""
+    opt = make_optimizer(train.optimizer)
+    impl, cdt = _model_impl(train.attention_impl), _compute_dtype(train)
+    step = make_host_offload_train_step(
+        opt, sched, host_emb, grad_clip=train.grad_clip, l2_reg=train.wd,
+        l2_exclude=train.no_reg_param_name, impl=impl, has_masks=has_masks,
+        compute_dtype=cdt)
+    return opt, step, make_host_offload_eval_step(host_emb, impl, has_masks, cdt)
 
 
 def _init_state(model, opt, train: TrainOptions):
@@ -284,7 +446,7 @@ def _report_model_stats(model, spec, log_fn, logging_dir: Optional[str] = None) 
                                       model, dense, cat)
     log_fn(f"FLOPS: {flops / 1e6:.4f} M/example \t "
            f"Params: {profiling.count_params(model) / 1e6:.4f} M")
-    if not logging_dir:
+    if not logging_dir or host_info()[0] != 0:
         return
     try:
         gdir = os.path.join(logging_dir, "model_graph")
@@ -297,6 +459,12 @@ def _report_model_stats(model, spec, log_fn, logging_dir: Optional[str] = None) 
         log_fn(f"model graph dumped to {gdir}")
     except OSError as e:  # a graph dump must never end a run
         log_fn(f"model graph dump unavailable: {e}")
+
+
+def _chief_dir(path: Optional[str]) -> Optional[str]:
+    """`path` on rank 0 and None elsewhere: one writer of metrics.jsonl and
+    trace.json per (possibly shared) filesystem."""
+    return path if host_info()[0] == 0 else None
 
 
 class _MaybeProfile:
@@ -363,21 +531,35 @@ def train_fixed_subnet(
                              num_train_steps, num_warmup)
     if train.table_update not in ("auto", "scatter", "sweep"):
         raise ValueError(f"unknown table_update {train.table_update!r}")
+    if train.table_update == "sweep" and train.place_embedding_on_cpu:
+        raise ValueError("table_update='sweep' is a device-table path "
+                         "(not compatible with place_embedding_on_cpu)")
     if train.table_update == "sweep" and not _use_sparse_embedding(train):
         raise ValueError("table_update='sweep' requires the sparse-embedding path "
                          "(adagrad, wd=0 or sparse_embedding=True)")
-    opt, step = _make_step(train, sched)
-    state = _init_state(model, opt, train)
-    eval_step = make_eval_step(impl=_model_impl(train.attention_impl),
-                               compute_dtype=_compute_dtype(train))
-    train_iter, test_iter = _make_iterators(data, device)
-
-    if train.report_flops:
+    if train.report_flops:      # of the whole model, before the table moves
         _report_model_stats(model, spec, log_fn, logging_dir=train.logging_dir)
+    mesh, host_emb, fetch = None, None, None
+    if train.mesh_model > 0:
+        mesh = make_mesh(model=train.mesh_model)
+        opt, step, eval_step = _make_steps(train, sched, mesh)
+        state = shard_train_state(_init_state(model, opt, train), mesh)
+        fetch = mesh.fetch
+    elif train.place_embedding_on_cpu:
+        host_emb = HostEmbedding(detach_table(model), table_offsets(vocab))
+        opt, step, eval_step = _offload_steps(train, sched, host_emb)
+        state = init_train_state(model, opt)
+    else:
+        opt, step, eval_step = _make_steps(train, sched)
+        state = _init_state(model, opt, train)
+    train_iter, test_iter = _make_iterators(data, device)
+    if _multi_process_check(train):
+        train_iter, test_iter = _globalize_iterators(
+            mesh, train_iter, test_iter, slice_local=data.data_source == "synthetic")
 
-    writer = MetricsWriter(train.logging_dir)
+    writer = MetricsWriter(_chief_dir(train.logging_dir))
     epoch_logs, best = [], None
-    with _MaybeProfile(train.profile_dir):
+    with _MaybeProfile(_chief_dir(train.profile_dir)):
         for epoch in range(train.num_epochs):
             state, logs, best_ep = train_and_test_one_epoch(
                 step, eval_step, state, train_iter(), test_iter,
@@ -389,18 +571,21 @@ def train_fixed_subnet(
                 test_only_at_last_step=train.test_only_at_last_step,
                 log_fn=log_fn,
                 metrics_writer=writer,
+                fetch=fetch,
             )
             epoch_logs.append(logs)
             if best_ep is not None:
                 best = best_ep
     writer.close()
 
+    params, _ = _saved_state(state, int(sum(vocab)), mesh, host_emb, with_opt=False)
     _dump_logs(train.logging_dir, epoch_logs,
                {"choice": choice_payload, "data": dataclasses.asdict(data),
                 "train": dataclasses.asdict(train)},
-               {"params": to_jax_params(state.model), "step": state.step},
+               {"params": params, "step": state.step},
                ckpt_backend=train.ckpt_backend)
-    return {"state": state, "logs": epoch_logs, "best_params": best, "plan": plan}
+    return {"state": state, "logs": epoch_logs, "best_params": best, "plan": plan,
+            "host_embedding": host_emb}
 
 
 @dataclasses.dataclass
@@ -456,20 +641,35 @@ def train_supernet(
     num_warmup = steps_per_epoch // 10 // train.num_epochs
     sched = make_lr_schedule(train.lr_schedule, train.learning_rate,
                              num_train_steps, num_warmup)
-    opt, step = _make_step(train, sched, has_masks=True)
-    state = _init_state(model, opt, train)
-    start_step = 0
+    start_step, resume_opt = 0, None
     if sn.checkpoint_path:
         ckpt = load_any_checkpoint(sn.checkpoint_path)
         model.load_state_dict(from_jax_params(ckpt["params"], cfg))
-        if ckpt.get("opt_state") is not None:
-            copy_state_(state.opt_state, from_jax_opt_state(ckpt["opt_state"], cfg))
+        resume_opt = ckpt.get("opt_state")
         start_step = int(ckpt.get("step", 0))
         log_fn(f"resumed from {sn.checkpoint_path} at step {start_step}")
-    state.step = start_step
 
-    eval_step = make_eval_step(impl=_model_impl(train.attention_impl), has_masks=True,
-                               compute_dtype=_compute_dtype(train))
+    def resume(state):
+        if resume_opt is not None:
+            copy_state_(state.opt_state, from_jax_opt_state(as_opt_state(resume_opt), cfg))
+        return state
+
+    mesh, host_emb, fetch = None, None, None
+    if train.mesh_model > 0:
+        mesh = make_mesh(model=train.mesh_model)
+        opt, step, eval_step = _make_steps(train, sched, mesh, has_masks=True)
+        state = shard_train_state(resume(_init_state(model, opt, train)), mesh)
+        fetch = mesh.fetch
+    elif train.place_embedding_on_cpu:
+        # As in the JAX package, the host table starts from the (resumed)
+        # parameters and a zero accumulator.
+        host_emb = HostEmbedding(detach_table(model), table_offsets(vocab))
+        opt, step, eval_step = _offload_steps(train, sched, host_emb, has_masks=True)
+        state = init_train_state(model, opt)
+    else:
+        opt, step, eval_step = _make_steps(train, sched, has_masks=True)
+        state = resume(_init_state(model, opt, train))
+    state.step = start_step
     candidates = None
     if sn.evo_2shot_candidates_path:
         with open(sn.evo_2shot_candidates_path, "rb") as f:
@@ -493,12 +693,20 @@ def train_supernet(
         eval_masks = choice_to_masks(full_path_choice(space, sn.num_blocks), space,
                                      sn.num_blocks).to(device)
     train_iter, test_iter = _make_iterators(data, device)
-    # Refilled `size` draws at a time, as in the JAX package, so that the
-    # sampler's counter (and its warmup) advance alike in both.
-    mask_buffer = DeviceMaskBuffer(sampler, size=min(256, max(steps_per_epoch, 1)),
-                                   device=device)
+    if _multi_process_check(train):
+        train_iter, test_iter = _globalize_iterators(
+            mesh, train_iter, test_iter, slice_local=data.data_source == "synthetic")
+    if mesh is not None or host_emb is not None:
+        # Mesh and offload: host masks a step, as in the JAX package (the
+        # device buffer serves the one-device steps); the same draws.
+        mask_buffer = lambda: choice_to_masks(sampler(), space, sn.num_blocks)
+    else:
+        # Refilled `size` draws at a time, as in the JAX package, so that the
+        # sampler's counter (and its warmup) advance alike in both.
+        mask_buffer = DeviceMaskBuffer(sampler, size=min(256, max(steps_per_epoch, 1)),
+                                       device=device)
 
-    writer = MetricsWriter(train.logging_dir)
+    writer = MetricsWriter(_chief_dir(train.logging_dir))
     epoch_logs = []
     for epoch in range(train.num_epochs):
         state, logs, _ = train_and_test_one_epoch(
@@ -514,13 +722,15 @@ def train_supernet(
             keep_best=False,
             log_fn=log_fn,
             metrics_writer=writer,
+            fetch=fetch,
         )
         epoch_logs.append(logs)
     writer.close()
 
+    params, opt_tree = _saved_state(state, int(sum(vocab)), mesh, host_emb)
     ckpt_payload = {
-        "params": to_jax_params(state.model),
-        "opt_state": to_jax_opt_state(state.model, state.opt_state),
+        "params": params,
+        "opt_state": opt_tree,
         "step": int(state.step),
         "supernet": dataclasses.asdict(sn),
     }
@@ -529,7 +739,7 @@ def train_supernet(
                 "train": dataclasses.asdict(train)},
                ckpt_payload, ckpt_name="supernet_checkpoint.pkl",
                ckpt_backend=train.ckpt_backend)
-    return {"state": state, "logs": epoch_logs, "cfg": cfg}
+    return {"state": state, "logs": epoch_logs, "cfg": cfg, "host_embedding": host_emb}
 
 
 def _dump_logs(logging_dir: Optional[str], epoch_logs, options: Dict, ckpt_payload: Dict,
@@ -537,8 +747,8 @@ def _dump_logs(logging_dir: Optional[str], epoch_logs, options: Dict, ckpt_paylo
     """configs_args.json, train_test_logs.{json,pickle} and the checkpoint
     (`train/checkpoint.py`: the JAX package's layout), as the JAX package
     writes them; nothing without a logging dir."""
-    if not logging_dir:
-        return
+    if not logging_dir or host_info()[0] != 0:
+        return      # one writer per (possibly shared) filesystem
     os.makedirs(logging_dir, exist_ok=True)
     with open(os.path.join(logging_dir, "configs_args.json"), "w") as f:
         json.dump(options, f, indent=2, default=str)
@@ -546,6 +756,8 @@ def _dump_logs(logging_dir: Optional[str], epoch_logs, options: Dict, ckpt_paylo
         pickle.dump(epoch_logs, f)
     with open(os.path.join(logging_dir, "train_test_logs.json"), "w") as f:
         json.dump(epoch_logs, f)
+    if ckpt_backend == "orbax":
+        ckpt_name = os.path.splitext(ckpt_name)[0] + ".orbax"
     save_checkpoint_any(os.path.join(logging_dir, ckpt_name), ckpt_payload, ckpt_backend)
 
 
@@ -744,7 +956,10 @@ def search_from_supernet(
     searcher = Searcher(
         eval_fn, tokenizer,
         SearchConfig(criterion=so.criterion, group_size=so.group_size, seed=so.seed,
-                     beta=so.beta, target_latency=so.target_latency),
+                     beta=so.beta, target_latency=so.target_latency,
+                     # Several processes fan the candidate groups out across
+                     # themselves (ref: searcher.py:126-156).
+                     distribute=host_info()[1] > 1),
         log_fn=log_fn,
     )
     if so.method == "random":
@@ -758,7 +973,7 @@ def search_from_supernet(
             top_k=so.ea_top_k,
         )
 
-    if logging_dir:
+    if logging_dir and host_info()[0] == 0:
         os.makedirs(logging_dir, exist_ok=True)
         with open(os.path.join(logging_dir, "results.pickle"), "wb") as f:
             pickle.dump(results, f)

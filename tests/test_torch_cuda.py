@@ -17,7 +17,9 @@ table update) for Adam, SGD and Adagrad with wd > 0, against its plain step;
 and the micro-batched sparse step's single table update against one slice;
 profiling.dot_flops of the xlarge forward (and of a forward and backward)
 through the kernels against the plain versions, and both device checks
-(tools/body_device_check.py, tools/sweep_device_check.py).
+(tools/body_device_check.py, tools/sweep_device_check.py); the host-RAM
+table's step against the on-device step (1e-4), and the sparse mesh step over
+an NCCL group of one rank against the one-device step (equal bits).
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -749,3 +751,94 @@ def test_device_checks_pass(dev, capsys):
     sweep_device_check.main()
     out = capsys.readouterr().out
     assert "BODY_DEVICE_CHECK_OK" in out and "SWEEP_DEVICE_CHECK_OK" in out
+
+
+def _max_diff(model_a, model_b, skip=()):
+    sd_a, sd_b = model_a.state_dict(), model_b.state_dict()
+    return max((sd_a[k] - sd_b[k]).abs().max().item() for k in sd_a if k not in skip)
+
+
+def test_host_offload_step_on_the_card_matches_the_on_device_step(dev):
+    """Three xlarge steps at batch 2048 with the table in host RAM against the
+    sparse step with the table on the card, from the same weights: the body
+    and dot-product kernels launch each step, the table update never; loss,
+    dense parameters, table and accumulator within 1e-4."""
+    import copy
+
+    import numpy as np
+
+    from nasrec_tpu_torch.models.embedding import table_offsets
+    from nasrec_tpu_torch.parallel.host_embedding import (
+        HostEmbedding,
+        detach_table,
+        make_host_offload_train_step,
+    )
+    from nasrec_tpu_torch.train.loop import init_train_state
+    from nasrec_tpu_torch.train.optim import make_optimizer
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+        table_accumulator,
+    )
+
+    model_d, batch = _fixed_case(dev, 2048)
+    model_o = copy.deepcopy(model_d)
+    state_d = init_sparse_train_state(model_d)
+    step_d = make_sparse_embedding_train_step(lambda s: 0.05)
+    host = HostEmbedding(detach_table(model_o), table_offsets((1000,) * 26))
+    opt = make_optimizer("adagrad")
+    state_o = init_train_state(model_o, opt)
+    step_o = make_host_offload_train_step(opt, lambda s: 0.05, host)
+    before = _launches()
+    for _ in range(3):
+        state_o, m_o = step_o(state_o, *batch)
+    torch.cuda.synchronize()
+    assert _launched(before) == {k: 3 for k in XLARGE_STEP}
+    for _ in range(3):
+        state_d, m_d = step_d(state_d, *batch)
+    assert abs(float(m_o["loss"]) - float(m_d["loss"])) <= 1e-4
+    assert _max_diff(model_o, model_d, skip=("embedding.table",)) <= 1e-4
+    assert np.abs(host.table - model_d.embedding.table.cpu().numpy()).max() <= 1e-4
+    assert np.abs(host.acc - table_accumulator(state_d.opt_state).cpu().numpy()).max() <= 1e-4
+
+
+def test_sparse_mesh_step_over_nccl_at_world_size_one(dev):
+    """The sparse mesh step over an NCCL group of one rank gives the
+    one-device step's bits, with the same launches."""
+    import copy
+    import socket
+
+    from nasrec_tpu_torch.parallel import distributed
+    from nasrec_tpu_torch.parallel.mesh import make_mesh
+    from nasrec_tpu_torch.parallel.sparse import make_parallel_sparse_train_step
+    from nasrec_tpu_torch.parallel.train import shard_train_state
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model_1, batch = _fixed_case(dev, 2048)
+    model_m = copy.deepcopy(model_1)
+    state_1 = init_sparse_train_state(model_1)
+    step_1 = make_sparse_embedding_train_step(lambda s: 0.05)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.start(f"tcp://127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        mesh = make_mesh(model=1)
+        state_m = shard_train_state(init_sparse_train_state(model_m), mesh)
+        step_m = make_parallel_sparse_train_step(lambda s: 0.05, mesh)
+        before = _launches()
+        for _ in range(2):
+            state_m, m_m = step_m(state_m, *batch)
+        torch.cuda.synchronize()
+        launched = _launched(before)
+        assert torch.distributed.get_backend() == "nccl"
+    finally:
+        distributed.shutdown()
+    assert launched == {**{k: 2 for k in XLARGE_STEP}, "table_update": 2}
+    for _ in range(2):
+        state_1, m_1 = step_1(state_1, *batch)
+    assert float(m_m["loss"]) == float(m_1["loss"])
+    assert _max_diff(model_m, model_1) == 0.0

@@ -22,6 +22,16 @@ def test_no_jax_or_jax_package_import(path):
     assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
+def test_the_multi_device_layer_is_walked():
+    """parallel/ and the multi-process demos are among the files checked."""
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("__init__", "distributed", "embedding", "host_embedding", "mesh", "sparse",
+                 "train"):
+        assert f"nasrec_tpu_torch/parallel/{name}.py" in walked, name
+    for name in ("multihost_demo", "search_fanout_demo"):
+        assert f"nasrec_tpu_torch/tools/{name}.py" in walked, name
+
+
 def test_every_kernel_source_is_walked_and_bound():
     """Each CUDA source has a wrapper module among the walked files, a C
     signature table in build.py, and includes nothing of PyTorch (a plain C

@@ -3,8 +3,9 @@ tokenizer's random choices, mutations and hashes; the Searcher's random
 search and regularized evolution with a scripted score function (histories
 and all_results) for every criterion; `freeze_mask`'s trainable sets mapped
 through the transplant; the EA export tool's files; the fixed-subnet CLI's
-`--net supernet` options; the refusals of what is not yet ported; and the
-search, the re-scoring and the from-scratch evaluation on TSV shards.
+`--net supernet` options; the search branches that were refused before
+they were ported (the cross-process fan-out now runs); and the search, the
+re-scoring and the from-scratch evaluation on TSV shards.
 
 Tolerance: none.  Choices, hashes, histories, trainable sets and exported
 files must be equal.
@@ -163,18 +164,28 @@ def test_main_train_net_supernet_trains_the_full_path(monkeypatch):
 
 
 def _refusals():
-    """Each unported branch, called with device 'cuda' on a machine without
-    a card: the refusal must come before the device check and any work."""
-    return {
-        "distribute": lambda: Searcher(lambda c: [], Tokenizer(2, OPS_CONFIG_LIB["xlarge"]),
-                                       SearchConfig(distribute=True)),
-    }
+    """The search branches once refused as unported.  `distribute` is ported
+    (tests/test_torch_mesh.py runs it over two ranks): in one process a
+    Searcher built with it evaluates every group itself."""
+    seen = []
+
+    def eval_fn(choices):
+        seen.append(len(choices))
+        return [{"choice": c, "test_loss": 0.5} for c in choices]
+
+    def distribute():
+        searcher = Searcher(eval_fn, Tokenizer(2, OPS_CONFIG_LIB["xlarge"], seed=0),
+                            SearchConfig(distribute=True, group_size=2, seed=0),
+                            log_fn=lambda s: None)
+        return searcher.random_search_from_supernet(budget=5, top_k=2), seen
+
+    return {"distribute": distribute}
 
 
 @pytest.mark.parametrize("what", sorted(_refusals()))
 def test_unported_search_branches_raise_up_front(what):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _refusals()[what]()
+    top, seen = _refusals()[what]()
+    assert len(top) == 2 and seen == [2, 2, 1]
 
 
 @pytest.fixture(scope="module")

@@ -276,8 +276,10 @@ def test_train_supernet_cli_writes_logs_and_resumes(tmp_path):
 
 
 def test_train_supernet_options(tmp_path):
-    """evo-2shot candidates and a pretrained table; the branches that are not
-    ported raise, and so does the TPU's table layout."""
+    """evo-2shot candidates and a pretrained table; the multi-device branches
+    (a mesh of one process, the host-RAM table, the directory checkpoint)
+    train, a mesh that the processes do not fill raises, and so does the
+    TPU's table layout."""
     donor = tmp_path / "donor.pkl"
     sn = SupernetOptions(config="autoctr", num_blocks=2, supernet_training_steps=0)
     data = DataOptions(data_source="synthetic", train_batch_size=16, test_batch_size=32,
@@ -303,10 +305,15 @@ def test_train_supernet_options(tmp_path):
 
     with pytest.raises(ValueError, match="scatter"):
         train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, "table_update": "sweep"}))
-    for field, value in (("mesh_model", 2), ("place_embedding_on_cpu", True),
+    with pytest.raises(ValueError, match="not divisible by model=2"):
+        train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, "mesh_model": 2}))
+    for field, value in (("mesh_model", 1), ("place_embedding_on_cpu", True),
                          ("ckpt_backend", "orbax")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, field: value}))
+        run = train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__, field: value,
+                                                          "logging_dir": str(tmp_path / field)}),
+                                log_fn=lambda s: None)
+        assert run["state"].step == 1 and np.isfinite(run["logs"][0]["train_loss"]).all()
+    assert (tmp_path / "ckpt_backend" / "supernet_checkpoint.orbax" / "sidecar.json").is_file()
     # bf16 compute trains: the step is taken, the parameters stay float32.
     bf16 = train_supernet_fn(sn, data, TrainOptions(**{**train.__dict__,
                                                        "compute_dtype": "bfloat16"}),

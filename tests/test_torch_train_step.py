@@ -131,12 +131,17 @@ def test_train_fixed_subnet_cli_on_cpu_xlarge(tmp_path):
 
 
 def test_unported_branches_raise():
+    """The branches once refused as unported run from the CLI; a mesh that
+    the processes do not fill raises before any work."""
     base = ["--arch", "criteo-kaggle/autoctr", "--data_source", "synthetic",
-            "--device", "cpu"]
-    for extra in (["--mesh_model", "2"], ["--place_embedding_on_cpu", "1"],
+            "--device", "cpu", "--max_train_steps", "2", "--max_eval_steps", "1",
+            "--train_batch_size", "32", "--test_batch_size", "64"]
+    with pytest.raises(ValueError, match="not divisible by model=2"):
+        main_train.main(base + ["--mesh_model", "2"])
+    for extra in (["--mesh_model", "1"], ["--place_embedding_on_cpu", "1"],
                   ["--ckpt_backend", "orbax"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            main_train.main(base + extra)
+        out = main_train.main(base + extra)
+        assert out["state"].step == 2 and np.all(np.isfinite(out["logs"][0]["train_loss"]))
 
 
 def test_cli_wd_trains_through_the_dense_step():
