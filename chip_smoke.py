@@ -9,19 +9,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
               parallel), with ptxas's registers and shared memory.
   2. kernels  each hand-written kernel against its plain PyTorch version on
               the same CUDA inputs at the main paths' shapes, batch 32768:
-              the dot-product at n = 46, 17 (autoctr) and 40, 9 (xlarge), on
-              the operands the node holds (x [B, 16], yt [B, 16, n - 1]), with
-              equal bits from two runs; the
-              transformer body at S = 64 and 48, and at S = 16, which no live
-              block of these archs runs (eval forward, training forward with
-              o and the softmax statistic, backward with dx and the twelve
-              parameter gradients, equal bits from two backward runs, and equal
-              bits from x as the slot projection leaves it, [B, 16, S]
-              transposed, and from a contiguous x);
+              the dot-product at n = 46, 17 (autoctr) and 40, 9 (xlarge), and
+              33 (avazu/autoctr, phase 11), on the operands the node holds
+              (x [B, 16], yt [B, 16, n - 1]), with equal bits from two runs;
+              the transformer body at S = 64, 48 and 16 (S = 16: the xlarge
+              archs of avazu and kdd, phase 11) (eval forward, training
+              forward with o and the softmax statistic, backward with dx and
+              the twelve parameter gradients, equal bits from two backward
+              runs, and equal bits from x as the slot projection leaves it,
+              [B, 16, S] transposed, and from a contiguous x);
               the attention core at the same S; the transformer
               node's fused form against its unfused form; the full-vocab
               table update with uniform and zipf(1.05) indices, and on the
-              table's two halves by row_offset (phase 10c).  With errors
+              table's two halves by row_offset (phase 10c); the table update
+              over avazu's 9,459,467 rows and kdd's 50,666,853 (753,664 and
+              327,680 uniform positions, among them every slot's last row),
+              bit for bit over the whole table.  With errors
               and CUDA-event times of kernel, plain version and the one
               PyTorch call that computes the same function; for the
               dot-product and the table update also the kernel's time with
@@ -34,10 +37,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               search's shapes: the body's eval forward at S = 64 for batch 512
               and 1024 (an eval chunk), the dot-product forward at n = 46 for
               batch 1024.  And in bf16 (rows "_bf16"), at batch 32768: the
-              body and the attention core at S = 64 and 48, the dot-product at
-              n = 40, 9, 46 and 17, each against its plain version in bf16
-              (one bf16 ulp, f32 parameter gradients within 1e-3), with
-              cold_ms and the library call in bf16.
+              body and the attention core at S = 64, 48 and 16, the
+              dot-product at n = 40, 9, 46, 17 and 33, each against its plain
+              version in bf16 (one bf16 ulp, f32 parameter gradients within
+              1e-3), with cold_ms and the library call in bf16.
   3. main     sparse-embedding train steps at full Criteo vocab (33,762,601
               rows) and batch 32768 through the kernels, counted, then the
               same steps from the same weights through the plain versions:
@@ -167,6 +170,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
               configuration with --ckpt_backend orbax (2 steps) writes
               arrays/ and sidecar.json, which reload into the run's weights bit
               for bit, and a run resumes from the directory at its step.
+  11. datasets  the published best archs of the other two datasets,
+              avazu/xlarge, avazu/autoctr, kdd/xlarge and kdd/autoctr, each as
+              phase 3 runs criteo-kaggle's: 7 blocks, the dataset's full vocab
+              (9,459,467 and 50,666,853 rows), batch 32768, uniform indices, 4
+              steps through the kernels against the plain versions from the
+              same weights, an eval forward, 2 steps unfused for the xlarge
+              archs, a profile line; then as phase 3d in bf16.  avazu/xlarge
+              and kdd/xlarge fed from TSV shards of their datasets' columns
+              (2 shards of 33,000 rows) through the C++ parser and
+              device_prefetch: two batches through kernels and plain, then
+              the TSV-fed step against the synthetic one.  Then each avazu and
+              kdd launcher of nasrec_tpu_torch/scripts/ (eval_best_model x 2,
+              train_supernet, run_ea) through its CLI's main, its flags read
+              from the file with synthetic data, 3 steps and the run's own
+              directories appended (the EA: 4 candidates on the checkpoint of
+              the dataset's supernet run): finite losses, the model's kernels
+              launched, the CLI's files written; each run's launches go
+              into rows of the shapes it launched at its batches (256 and 512
+              for eval_best_model, 512 and 4096 for train_supernet, 512 and
+              eval chunks of 1024 for run_ea), a shape without a row getting
+              one, checked against its plain version and timed; the table
+              update's rows for these runs hold the synthetic tables
+              (1,000 rows a slot) that the runs train.
 
 Then one {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -187,7 +213,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 32768
-STEPS = {"xlarge": 10, "autoctr": 4}
+STEPS = {"criteo-kaggle/xlarge": 10, "criteo-kaggle/autoctr": 4}
 UNFUSED_STEPS = 2
 CLI_STEPS = 40
 DEVICE = "cuda"
@@ -234,40 +260,45 @@ BF16_FLOOR = 1e-6
 BF16_PARAM_GRAD_TOL = 1e-3
 BF16_LIB_TOL = 5e-2
 BF16_LOSS_TOL, BF16_LOGIT_TOL, BF16_SLOT_TOL = 1e-3, 2 ** -5, 2 ** -6
-# The transformer nodes the xlarge step runs: blocks 0 (S = 64) and 6 (S = 48).
-# Block 5 holds one more, at S = 16, but nothing reads the outputs of blocks
-# 3 to 5, so the model skips them (models/fixed.py :: live_blocks); that shape
-# is held against the plain version and timed here all the same, on a line of
-# its own outside the "kernels" line.
-BODY_SLOTS = (64, 48)
-OFF_PATH_SLOTS = (16,)
-# Every kernel launch of one train step.  autoctr: the dot-product of blocks 1
-# (n = 46) and 4 (n = 17), forward and backward, and the table update.
-# xlarge: the dot-product of blocks 2 (n = 40) and 1 (n = 9), the transformer
-# body's training forward and backward at each S, and the table update.
-TRAIN_STEP_KERNELS = {
-    "autoctr": {"dot_scores_tril_fwd_n46", "dot_scores_tril_fwd_n17",
-                "dot_scores_tril_bwd_n46", "dot_scores_tril_bwd_n17", "table_update"},
-    "xlarge": {"dot_scores_tril_fwd_n40", "dot_scores_tril_fwd_n9",
-               "dot_scores_tril_bwd_n40", "dot_scores_tril_bwd_n9", "table_update"}
-              | {f"transformer_body_{k}_s{s}" for k in ("fwd_train", "bwd") for s in BODY_SLOTS},
+# The shapes each published best arch puts on the kernels: the dot-product's n
+# and the transformer body's S in its live blocks.  Blocks whose outputs
+# nothing reads are skipped (models/fixed.py :: live_blocks): 3 to 5 of the
+# two xlarge archs of criteo-kaggle and avazu, 5 of kdd/xlarge.
+ARCH_SHAPES = {
+    "criteo-kaggle/xlarge": ((40, 9), (64, 48)),
+    "criteo-kaggle/autoctr": ((46, 17), ()),
+    "avazu/xlarge": ((9, 40), (48, 16)),
+    "avazu/autoctr": ((33, 40), ()),
+    "kdd/xlarge": ((17,), (48, 64, 16)),
+    "kdd/autoctr": ((17, 9, 40, 46), ()),
 }
+XL, AC = "criteo-kaggle/xlarge", "criteo-kaggle/autoctr"
+# The S of every body a main path runs, held and timed in phase 2.
+BODY_SLOTS = (64, 48, 16)
+# Every kernel launch of one train step: the dot-product forward and backward
+# at each n, the body's training forward and backward at each S, and the
+# table update.
+TRAIN_STEP_KERNELS = {
+    arch: ({f"dot_scores_tril_{k}_n{n}" for k in ("fwd", "bwd") for n in dots}
+           | {f"transformer_body_{k}_s{s}" for k in ("fwd_train", "bwd") for s in bodies}
+           | {"table_update"})
+    for arch, (dots, bodies) in ARCH_SHAPES.items()}
 # An eval forward (under no_grad) launches the forward kernels only.
 EVAL_KERNELS = {
-    "autoctr": {"dot_scores_tril_fwd_n46", "dot_scores_tril_fwd_n17"},
-    "xlarge": {"dot_scores_tril_fwd_n40", "dot_scores_tril_fwd_n9"}
-              | {f"transformer_body_fwd_s{s}" for s in BODY_SLOTS},
-}
+    arch: ({f"dot_scores_tril_fwd_n{n}" for n in dots}
+           | {f"transformer_body_fwd_s{s}" for s in bodies})
+    for arch, (dots, bodies) in ARCH_SHAPES.items()}
 # With the transformer nodes unfused, the attention core's kernel takes the
 # body kernels' place.
-UNFUSED_STEP_KERNELS = (
-    {k for k in TRAIN_STEP_KERNELS["xlarge"] if not k.startswith("transformer_body")}
-    | {f"tiny_head_attention_{k}_s{s}" for k in ("fwd", "bwd") for s in BODY_SLOTS})
+UNFUSED_STEP_KERNELS = {
+    arch: ({k for k in TRAIN_STEP_KERNELS[arch] if not k.startswith("transformer_body")}
+           | {f"tiny_head_attention_{k}_s{s}" for k in ("fwd", "bwd") for s in bodies})
+    for arch, (_, bodies) in ARCH_SHAPES.items()}
 # Phase 3d (amp): the steps of phase 3 with compute_dtype bfloat16, the AMP leg
 # of the JAX package's bench.py (:197-205); the unfused run's losses against
 # the fused run's first steps within AMP_UNFUSED_LOSS_TOL of the loss (the
 # unfused form rounds to bf16 after every op, the fused one once).
-AMP_STEPS = {"xlarge": 10, "autoctr": 4}
+AMP_STEPS = {"criteo-kaggle/xlarge": 10, "criteo-kaggle/autoctr": 4}
 AMP_UNFUSED_STEPS = 2
 AMP_UNFUSED_LOSS_TOL = 2e-2
 # Phase 3a (data): criteo-shaped TSV shards made from a seed, 4 shards of
@@ -286,7 +317,7 @@ TSV_TIMED_STEPS = 16
 # sparse step but the table update: the optimizer updates the whole table.
 DENSE_STEPS = 3
 DENSE_SETTINGS = (("adam", 0.0, 1e-3), ("sgd", 0.0, 0.01), ("adagrad", 1e-6, 0.01))
-DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS["xlarge"] - {"table_update"}
+DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - {"table_update"}
 # Phase 3c (micro): the sparse step with 2 micro-batches against 1 at batch
 # 32768 (2 steps), then batch 65536 with 2 and with 1.
 MICRO_STEPS = 2
@@ -365,6 +396,35 @@ OFFLOAD_REL = 1e-3
 FANOUT_CANDIDATES = 2 * SEARCH_GROUP
 FANOUT_TOL = 1e-6
 ORBAX_STEPS = 2         # the directory checkpoint's run; its resume takes 1 more
+# Phase 11 (datasets): the published best archs of avazu and kdd at full
+# width (7 blocks, each dataset's full vocab: 9,459,467 and 50,666,853 rows,
+# batch 32768), each as phase 3 runs criteo-kaggle's and in bf16 as phase 3d
+# does, with DS_STEPS steps; avazu/xlarge and kdd/xlarge fed from TSV shards
+# of their datasets' columns (DS_TSV_SHARDS shards of one batch each); then
+# each dataset's launchers through their CLIs' main, the launcher's flags
+# followed by overrides (argparse keeps a flag's last value): synthetic data,
+# LAUNCH_STEPS train steps, 1 eval batch, and for the search
+# LAUNCH_CANDIDATES initial candidates (a sample of half of them, which the
+# EA needs below the population) and no generation, on the checkpoint of the
+# dataset's own supernet run.
+DS_DATASETS = ("avazu", "kdd")
+DS_ARCHS = tuple(f"{d}/{s}" for d in DS_DATASETS for s in ("xlarge", "autoctr"))
+DS_STEPS = 4
+DS_TSV_SHARDS = 2
+DS_TSV_ROWS = DS_TSV_SHARDS * 33_000
+DS_TSV_TIMED_STEPS = 4
+DS_LAUNCHERS = ("eval_best_model/{}_xlarge.sh", "eval_best_model/{}_autoctr.sh",
+                "train_supernet/{}_xlarge.sh", "run_ea/{}_xlarge.sh")
+LAUNCH_STEPS, LAUNCH_CANDIDATES = 3, 4
+# What each CLI writes into its logging dir (as phases 5 and 8 hold the
+# criteo-kaggle runs of the same CLIs to).
+LAUNCH_FILES = {
+    "main_train": {"configs_args.json", "metrics.jsonl", "checkpoint.pkl",
+                   "train_test_logs.json", "train_test_logs.pickle"},
+    "train_supernet": {"configs_args.json", "metrics.jsonl", "supernet_checkpoint.pkl",
+                       "train_test_logs.json", "train_test_logs.pickle"},
+    "eval_subnet_from_supernet": {"results.pickle", "all_results.pickle"},
+}
 
 
 def emit(obj) -> None:
@@ -949,10 +1009,13 @@ def check_dot_scores(n, hbm, gen, rows_out, batch=BATCH, suffix="",
     torch.cuda.empty_cache()
 
 
-def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_update") -> None:
+def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_update",
+                       kinds=("uniform", "zipf"), top_rows=False) -> None:
     """The table update over the fused table of `vocab` against the plain
-    version, with the touched rows of a batch of uniform and of zipf(1.05)
-    indices; the row `name` times the uniform case."""
+    version, with the touched rows of a batch of uniform (and of zipf(1.05))
+    indices; the row `name` times the uniform case.  top_rows: the batch's
+    first example takes the last row of every slot, so the update reaches
+    the table's highest rows (the last slot's last row is the table's)."""
     import numpy as np
     import torch
 
@@ -966,8 +1029,11 @@ def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_updat
     table0 = torch.randn(total, 16, device=dev, generator=gen)
     acc0 = torch.rand(total, 16, device=dev, generator=gen)
     rng = np.random.RandomState(0)
-    for kind in ("uniform", "zipf"):
-        idx2d = torch.as_tensor(draw_indices(rng, batch, vocab, kind), device=dev) + offsets
+    for kind in kinds:
+        idx = draw_indices(rng, batch, vocab, kind)
+        if top_rows:
+            idx[0] = np.asarray(vocab) - 1
+        idx2d = torch.as_tensor(idx, device=dev) + offsets
         g = 0.01 * torch.randn(batch * len(vocab), 16, device=dev, generator=gen)
         rows, seg, is_end = rowwise_segment_sum_slotwise(idx2d, g)
         lr = 0.05
@@ -983,9 +1049,12 @@ def check_table_update(vocab, hbm, gen, rows_out, batch=BATCH, name="table_updat
         te, _, _ = max_err(t_k, t_p)
         ae, _, _ = max_err(a_k, a_p)
         unique = int(is_end.sum())
-        ok = untouched_exact and te == 0.0 and ae == 0.0
+        highest = int(rows.max().item())
+        ok = (untouched_exact and te == 0.0 and ae == 0.0
+              and (not top_rows or (highest == total - 1 and bool(changed[-1]))))
         emit({"phase": "kernels", "kernel": "table_update", "indices": kind,
               "table_rows": total, "positions": rows.numel(), "touched_rows": unique,
+              "highest_row_touched": highest,
               "table_max_abs_err": te, "acc_max_abs_err": ae,
               "untouched_rows_bit_exact": untouched_exact, "ok": ok})
         if not ok:
@@ -1052,24 +1121,24 @@ def phase_kernels(hbm):
     for slots in BODY_SLOTS:
         check_transformer_body(slots, hbm, gen, rows_out)
         check_attention(slots, hbm, gen, rows_out)
-    for slots in OFF_PATH_SLOTS:
-        off_path = {}
-        check_transformer_body(slots, hbm, gen, off_path)
-        check_attention(slots, hbm, gen, off_path)
-        emit({"phase": "kernels", "off_path_shape": True, "slots": slots,
-              "rows": list(off_path.values())})
     check_fused_against_unfused(gen)
-    for n in (46, 17, 40, 9):
+    for n in (46, 17, 40, 9, 33):
         check_dot_scores(n, hbm, gen, rows_out)
-    # bf16 compute (phase 3d's shapes): the body and the attention core at
-    # S = 64 and 48, the dot-product at n = 40, 9 (xlarge) and 46, 17 (autoctr).
+    # bf16 compute (phases 3d and 11): the body and the attention core at
+    # S = 64, 48 and 16, the dot-product at n = 40, 9 (xlarge), 46, 17
+    # (autoctr) and 33 (avazu/autoctr).
     for slots in BODY_SLOTS:
         check_transformer_body(slots, hbm, gen, rows_out, dtype="bfloat16")
         check_attention(slots, hbm, gen, rows_out, dtype="bfloat16")
-    for n in (40, 9, 46, 17):
+    for n in (40, 9, 46, 17, 33):
         check_dot_scores(n, hbm, gen, rows_out, dtype="bfloat16")
     spec = DATASETS["criteo-kaggle"]
     check_table_update(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
+    # Phase 11's tables: every slot's rows of avazu and kdd, the batch's
+    # positions uniform over them, the highest rows among them.
+    for dataset in DS_DATASETS:
+        check_table_update(DATASETS[dataset].vocab_sizes(VOCAB_CAP), hbm, gen, rows_out,
+                           name=table_row(dataset), kinds=("uniform",), top_rows=True)
 
     # The supernet's shapes: every block's transformer body at S = 64 and its
     # dot-product at n = 46, batch SN_BATCH in training (rows "_b512") and
@@ -1093,22 +1162,25 @@ def phase_kernels(hbm):
     return rows_out
 
 
-def xlarge_plan(vocab):
-    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+def best_plan(arch, vocab):
+    """The 7-block plan of a published best arch, "<dataset>/<space>"."""
+    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
     from nasrec_tpu_torch.configs import get_best_arch
     from nasrec_tpu_torch.models.fixed import build_fixed_plan
 
-    return build_fixed_plan(get_best_arch("criteo-kaggle", "xlarge"), OPS_CONFIG_LIB["xlarge"],
-                            7, 13, 26, vocab)
+    dataset, space = arch.split("/")
+    spec = DATASETS[dataset]
+    return build_fixed_plan(get_best_arch(dataset, space), OPS_CONFIG_LIB[space], 7,
+                            spec.num_dense, spec.num_sparse, vocab)
 
 
-def device_batches(rng, n, batch, vocab):
+def device_batches(rng, n, batch, vocab, num_dense=13):
     """n phase-3 batches on the card: N(0,1) dense, uniform indices, 0/1 labels."""
     import numpy as np
     import torch
 
     dev = torch.device(DEVICE)
-    return [(torch.as_tensor(rng.randn(batch, 13).astype(np.float32), device=dev),
+    return [(torch.as_tensor(rng.randn(batch, num_dense).astype(np.float32), device=dev),
              torch.as_tensor(draw_indices(rng, batch, vocab, "uniform"), device=dev),
              torch.as_tensor(rng.randint(0, 2, size=(batch, 1)).astype(np.float32), device=dev))
             for _ in range(n)]
@@ -1134,23 +1206,31 @@ def state_diff(model_a, model_b) -> float:
     return max((sd_a[k] - sd_b[k]).abs().max().item() for k in sd_a)
 
 
-def add_launches(rows_out, launches: dict) -> None:
-    """Launches of phases 3a-3c, counted in the rows of the same kernel and
-    shape (the batch-32768 rows)."""
+def table_row(dataset: str) -> str:
+    """The row of the table update over a dataset's full-vocab table (each
+    dataset's table is a shape of its own)."""
+    return "table_update" if dataset == "criteo-kaggle" else f"table_update_{dataset}"
+
+
+def add_launches(rows_out, launches: dict, dataset: str = "criteo-kaggle") -> None:
+    """Launches at batch 32768 counted in the rows of the same kernel and
+    shape (the table update's in the row of the dataset's table)."""
     for name, count in launches.items():
+        if name == "table_update":
+            name = table_row(dataset)
         rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
 
 
-def phase_main(space, rows_out):
-    """One main path at full width: criteo-kaggle/<space>, kernel run (counted)
-    against plain run, then one eval forward of each; for xlarge also a short
-    run with the transformer nodes unfused."""
+def phase_main(arch, rows_out, phase="main"):
+    """One main path at full width: <arch> ("<dataset>/<space>", a published
+    best arch) at the full vocab of its dataset, kernel run (counted) against
+    plain run, then one eval forward of each; for an arch with transformer
+    nodes also a short run with the nodes unfused.  Returns the step's ms."""
     import numpy as np
     import torch
 
-    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
-    from nasrec_tpu_torch.configs import get_best_arch
-    from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_init
     from nasrec_tpu_torch.ops.attention import Transformer
     from nasrec_tpu_torch.train.loop import make_eval_step
     from nasrec_tpu_torch.train.optim import make_lr_schedule
@@ -1160,19 +1240,17 @@ def phase_main(space, rows_out):
     )
 
     dev = torch.device(DEVICE)
-    steps = STEPS[space]
-    spec = DATASETS["criteo-kaggle"]
+    steps = STEPS.get(arch, DS_STEPS)
+    spec = DATASETS[arch.split("/")[0]]
     vocab = spec.vocab_sizes(VOCAB_CAP)
-    plan = build_fixed_plan(get_best_arch("criteo-kaggle", space),
-                            OPS_CONFIG_LIB[space], 7, spec.num_dense,
-                            spec.num_sparse, vocab)
+    plan = best_plan(arch, vocab)
     t0 = time.perf_counter()
     model_k = fixed_init(plan, seed=0, device=dev)
     model_p = copy.deepcopy(model_k)
-    model_u = copy.deepcopy(model_k) if space == "xlarge" else None
+    model_u = copy.deepcopy(model_k) if ARCH_SHAPES[arch][1] else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab)
+    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab, spec.num_dense)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
 
     def run(model, impl, n):
@@ -1215,9 +1293,9 @@ def phase_main(space, rows_out):
           and tuple(eval_k.shape) == (BATCH, 1) and bool(torch.isfinite(eval_k).all())
           and loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
           and eval_diff <= LOGIT_TOL
-          and launches == {k: steps for k in TRAIN_STEP_KERNELS[space]}
-          and eval_launches == {k: 1 for k in EVAL_KERNELS[space]})
-    emit({"phase": "main", "arch": f"criteo-kaggle/{space}", "vocab_rows": int(sum(vocab)),
+          and launches == {k: steps for k in TRAIN_STEP_KERNELS[arch]}
+          and eval_launches == {k: 1 for k in EVAL_KERNELS[arch]})
+    emit({"phase": phase, "arch": arch, "vocab_rows": int(sum(vocab)),
           "batch": BATCH, "steps": steps, "init_s": init_s, "losses": losses_k,
           "losses_plain": losses_p, "max_loss_diff": loss_diff,
           "max_logit_diff": logit_diff, "max_param_diff": param_diff,
@@ -1228,10 +1306,10 @@ def phase_main(space, rows_out):
           "plain_run": "whole batches", "launches": launches,
           "eval_launches": eval_launches, "ok": ok})
     if not ok:
-        raise SystemExit(f"main path criteo-kaggle/{space} failed (see the 'main' line)")
+        raise SystemExit(f"main path {arch} failed (see its '{phase}' line)")
     del model_p
-    for name, count in [*launches.items(), *eval_launches.items()]:
-        rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+    add_launches(rows_out, launches, spec.name)
+    add_launches(rows_out, eval_launches, spec.name)
 
     if model_u is not None:
         # The same first steps with every transformer node in its unfused
@@ -1244,18 +1322,17 @@ def phase_main(space, rows_out):
         unfused = read_launches()
         diff_u = max(abs(a - b) for a, b in zip(losses_u, losses_k))
         ok = (diff_u <= LOSS_TOL
-              and unfused == {k: UNFUSED_STEPS for k in UNFUSED_STEP_KERNELS})
-        emit({"phase": "main", "arch": f"criteo-kaggle/{space}", "form": "unfused",
+              and unfused == {k: UNFUSED_STEPS for k in UNFUSED_STEP_KERNELS[arch]})
+        emit({"phase": phase, "arch": arch, "form": "unfused",
               "steps": UNFUSED_STEPS, "losses": losses_u, "max_loss_diff_vs_fused": diff_u,
               "step_ms_all": [x * 1e3 for x in times_u], "launches": unfused, "ok": ok})
         if not ok:
-            raise SystemExit("main path with unfused transformer nodes failed")
-        for name, count in unfused.items():
-            if name.startswith("tiny_head_attention"):
-                rows_out[name]["launches"] = count
+            raise SystemExit(f"main path {arch} with unfused transformer nodes failed")
+        add_launches(rows_out, {k: v for k, v in unfused.items()
+                                if k.startswith("tiny_head_attention")})
         del model_u
 
-    profile_steps(f"criteo-kaggle/{space}", more_k, 3)
+    profile_steps(arch, more_k, 3)
     del model_k, batches, more_k
     torch.cuda.empty_cache()
     return step_ms
@@ -1319,20 +1396,19 @@ def lockstep_ok(res) -> bool:
             and not any(res["plain_launches"]))
 
 
-def phase_amp(space, rows_out, f32_step_ms: float) -> float:
+def phase_amp(arch, rows_out, f32_step_ms: float, phase="amp") -> float:
     """Phase 3d: phase 3's main path with compute_dtype bfloat16 (the AMP leg):
-    AMP_STEPS sparse steps at full vocab and batch 32768 through the kernels,
-    counted a step (the body and dot-product kernels in bf16, the table update
-    in f32), each against the plain versions from the same state, and an eval
-    forward of each; for xlarge 2 more steps with the transformer nodes
-    unfused (the attention kernel in bf16); a profile line.  Returns the
-    step's ms."""
+    AMP_STEPS sparse steps of <arch> at full vocab and batch 32768 through the
+    kernels, counted a step (the body and dot-product kernels in bf16, the
+    table update in f32), each against the plain versions from the same state,
+    and an eval forward of each; for an arch with transformer nodes 2 more
+    steps with the nodes unfused (the attention kernel in bf16); a profile
+    line.  Returns the step's ms."""
     import numpy as np
     import torch
 
-    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
-    from nasrec_tpu_torch.configs import get_best_arch
-    from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_init
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_init
     from nasrec_tpu_torch.ops.attention import Transformer
     from nasrec_tpu_torch.train.loop import make_eval_step
     from nasrec_tpu_torch.train.optim import make_lr_schedule
@@ -1342,15 +1418,13 @@ def phase_amp(space, rows_out, f32_step_ms: float) -> float:
     )
 
     dev, bf = torch.device(DEVICE), torch.bfloat16
-    steps = AMP_STEPS[space]
-    spec = DATASETS["criteo-kaggle"]
+    steps = AMP_STEPS.get(arch, DS_STEPS)
+    spec = DATASETS[arch.split("/")[0]]
     vocab = spec.vocab_sizes(VOCAB_CAP)
-    plan = build_fixed_plan(get_best_arch("criteo-kaggle", space), OPS_CONFIG_LIB[space], 7,
-                            spec.num_dense, spec.num_sparse, vocab)
-    model_k = fixed_init(plan, seed=0, device=dev)
+    model_k = fixed_init(best_plan(arch, vocab), seed=0, device=dev)
     model_p = copy.deepcopy(model_k)
-    model_u = copy.deepcopy(model_k) if space == "xlarge" else None
-    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab)
+    model_u = copy.deepcopy(model_k) if ARCH_SHAPES[arch][1] else None
+    batches = device_batches(np.random.RandomState(0), steps, BATCH, vocab, spec.num_dense)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
 
     def make(impl):
@@ -1369,28 +1443,27 @@ def phase_amp(space, rows_out, f32_step_ms: float) -> float:
     eval_rel = (eval_k - eval_p).abs().max().item() / max(eval_p.abs().max().item(), 1.0)
     del model_p, state_p
     step_ms = float(np.median(res["seconds"][1:])) * 1e3
-    per_step = bf16_named({k: 1 for k in TRAIN_STEP_KERNELS[space]})
+    per_step = bf16_named({k: 1 for k in TRAIN_STEP_KERNELS[arch]})
     ok = (lockstep_ok(res) and eval_k.dtype == res["logits"].dtype == torch.float32
           and tuple(eval_k.shape) == (BATCH, 1) and bool(torch.isfinite(eval_k).all())
           and eval_rel <= BF16_LOGIT_TOL
           and all(p.dtype == torch.float32 for p in model_k.parameters())
           and all(c == per_step for c in res["launches"])
-          and eval_launches == bf16_named({k: 1 for k in EVAL_KERNELS[space]}))
-    emit({"phase": "amp", "arch": f"criteo-kaggle/{space}", "compute_dtype": "bfloat16",
+          and eval_launches == bf16_named({k: 1 for k in EVAL_KERNELS[arch]}))
+    emit({"phase": phase, "arch": arch, "compute_dtype": "bfloat16",
           "vocab_rows": int(sum(vocab)), "batch": BATCH, "steps": steps,
           "losses": res["losses"], "losses_plain_from_the_same_state": res["losses_plain"],
           "max_loss_rel_diff": res["loss_rel"], "max_logit_rel_diff": res["logit_rel"],
           "max_param_diff": res["param"], "max_accumulator_rel_diff": res["slot"],
           "max_eval_logit_rel_diff": eval_rel,
           "step_ms": step_ms, "examples_per_s": BATCH / step_ms * 1e3,
-          "step_ms_all": [x * 1e3 for x in res["seconds"]], "f32_step_ms_phase3": f32_step_ms,
+          "step_ms_all": [x * 1e3 for x in res["seconds"]], "f32_step_ms": f32_step_ms,
           "over_f32_step": step_ms / f32_step_ms, "peak_mem_gb": peak_gb,
           "launches_per_step": res["launches"][0], "eval_launches": eval_launches, "ok": ok})
     if not ok:
-        raise SystemExit(f"bf16 main path criteo-kaggle/{space} failed (see the 'amp' line)")
-    for name, count in [*((k, v * steps) for k, v in res["launches"][0].items()),
-                        *eval_launches.items()]:
-        rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+        raise SystemExit(f"bf16 main path {arch} failed (see its '{phase}' line)")
+    add_launches(rows_out, {k: v * steps for k, v in res["launches"][0].items()}, spec.name)
+    add_launches(rows_out, eval_launches, spec.name)
 
     if model_u is not None:
         # The first steps again with every transformer node unfused: op by op
@@ -1404,19 +1477,19 @@ def phase_amp(space, rows_out, f32_step_ms: float) -> float:
         unfused = read_launches()
         diff_u = max(abs(a - b) / abs(b) for a, b in zip(losses_u, res["losses"]))
         ok = (diff_u <= AMP_UNFUSED_LOSS_TOL
-              and unfused == bf16_named({k: AMP_UNFUSED_STEPS for k in UNFUSED_STEP_KERNELS}))
-        emit({"phase": "amp", "arch": f"criteo-kaggle/{space}", "form": "unfused",
+              and unfused == bf16_named({k: AMP_UNFUSED_STEPS
+                                         for k in UNFUSED_STEP_KERNELS[arch]}))
+        emit({"phase": phase, "arch": arch, "form": "unfused",
               "steps": AMP_UNFUSED_STEPS, "losses": losses_u,
               "max_loss_rel_diff_vs_fused": diff_u,
               "step_ms_all": [x * 1e3 for x in times_u], "launches": unfused, "ok": ok})
         if not ok:
-            raise SystemExit("bf16 main path with unfused transformer nodes failed")
-        for name, count in unfused.items():
-            if name.startswith("tiny_head_attention"):
-                rows_out[name]["launches"] = count
+            raise SystemExit(f"bf16 main path {arch} with unfused transformer nodes failed")
+        add_launches(rows_out, {k: v for k, v in unfused.items()
+                                if k.startswith("tiny_head_attention")})
         del model_u, state_u
 
-    profile_steps(f"criteo-kaggle/{space} bf16", lambda: step_k(state_k, *batches[0]), 3)
+    profile_steps(f"{arch} bf16", lambda: step_k(state_k, *batches[0]), 3)
     del model_k, state_k, batches
     torch.cuda.empty_cache()
     return step_ms
@@ -1433,19 +1506,11 @@ def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
     import torch
 
     from nasrec_tpu_torch.cli import main_train
-    from nasrec_tpu_torch.config import DATASETS
     from nasrec_tpu_torch.data import cache, pipeline, transforms
     from nasrec_tpu_torch.data.native import binding
     from nasrec_tpu_torch.data.synthetic import write_tsv_shards
-    from nasrec_tpu_torch.models.fixed import fixed_init
-    from nasrec_tpu_torch.train.optim import make_lr_schedule
-    from nasrec_tpu_torch.train.sparse_embedding import (
-        init_sparse_train_state,
-        make_sparse_embedding_train_step,
-    )
 
     t_phase = time.perf_counter()
-    dev = torch.device(DEVICE)
     root = tmp / "tsv"
     t0 = time.perf_counter()
     write_tsv_shards(str(root), 13, 26, {"trainval": TSV_TRAIN_ROWS, "test": TSV_TEST_ROWS},
@@ -1538,8 +1603,8 @@ def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
     ])
     cli_s = time.perf_counter() - t0
     cli_launches = read_launches()
-    want = Counter({k: TSV_TRAIN_BATCHES for k in TRAIN_STEP_KERNELS["xlarge"]})
-    want.update({k: TSV_TEST_BATCHES for k in EVAL_KERNELS["xlarge"]})
+    want = Counter({k: TSV_TRAIN_BATCHES for k in TRAIN_STEP_KERNELS[XL]})
+    want.update({k: TSV_TEST_BATCHES for k in EVAL_KERNELS[XL]})
     logs = out["logs"][0]
     ok = (len(logs["train_loss"]) == TSV_TRAIN_BATCHES
           and all(math.isfinite(x) for x in logs["train_loss"])
@@ -1555,20 +1620,45 @@ def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
     del out
     torch.cuda.empty_cache()
 
-    # Two TSV batches through the kernels and through the plain versions,
-    # from the same weights; then the TSV-fed step timed against the
-    # synthetic one, on the kernel path's model.
-    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
-    model_k = fixed_init(xlarge_plan(vocab), seed=0, device=dev)
+    res = tsv_vs_plain_and_timed(XL, train_fn, TSV_TIMED_STEPS, 2, rows_out, profile=True)
+    emit({"phase": "data", **res, "synthetic_step_ms_phase3": synthetic_step_ms,
+          "phase_s": time.perf_counter() - t_phase})
+    if not res["ok"]:
+        raise SystemExit("TSV batches through the kernels failed (see the 'data' line)")
+
+
+def tsv_vs_plain_and_timed(arch, train_fn, timed_steps: int, warm: int, rows_out,
+                           profile: bool = False) -> dict:
+    """<arch> at its dataset's full vocab fed from TSV batches (`train_fn`, as
+    make_dataset_iterators gives it): two batches through the kernels and
+    through the plain versions from the same weights (phase 3's tolerances);
+    then, on the kernel path's model, `warm` synthetic and TSV-fed steps in
+    turn, and `timed_steps` of each timed with the host's waits for the feed.
+    The launches go into rows_out; returns the numbers for the caller's line,
+    with "ok"."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.data import pipeline
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    dev = torch.device(DEVICE)
+    spec = DATASETS[arch.split("/")[0]]
+    vocab = spec.vocab_sizes(VOCAB_CAP)
+    model_k = fixed_init(best_plan(arch, vocab), seed=0, device=dev)
     model_p = copy.deepcopy(model_k)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
     step_k = make_sparse_embedding_train_step(sched, grad_clip=5.0)
     step_p = make_sparse_embedding_train_step(sched, grad_clip=5.0, impl="plain")
-    two = []
-    for batch in pipeline.device_prefetch(train_fn(), dev):
-        two.append(batch)
-        if len(two) == 2:
-            break
+    two = list(itertools.islice(pipeline.device_prefetch(train_fn(), dev), 2))
     reset_launches()
     state = init_sparse_train_state(model_k)
     losses_k, _, m_k = run_steps(step_k, state, two)
@@ -1577,6 +1667,7 @@ def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
     loss_diff = max(abs(a - b) for a, b in zip(losses_k, losses_p))
     logit_diff = (m_k["logits"] - m_p["logits"]).abs().max().item()
     param_diff = state_diff(model_k, model_p)
+    shapes = [tuple(t.shape) for t in two[0]]
     del model_p, two, m_p
     torch.cuda.empty_cache()
 
@@ -1584,49 +1675,50 @@ def phase_data(rows_out, tmp: Path, synthetic_step_ms: float):
         while True:
             yield from train_fn()
 
-    synthetic = device_batches(np.random.RandomState(0), 4, BATCH, vocab)
+    synthetic = device_batches(np.random.RandomState(0), 2 * warm, BATCH, vocab,
+                               spec.num_dense)
     feed = pipeline.device_prefetch(looped(), dev)
     reset_launches()
-    for i in range(2):                                    # warm both paths
+    for i in range(warm):                                 # warm both paths
         state, _ = step_k(state, *synthetic[i])
         state, _ = step_k(state, *next(feed))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(TSV_TIMED_STEPS):
+    for i in range(timed_steps):
         state, _ = step_k(state, *synthetic[i % len(synthetic)])
     torch.cuda.synchronize()
-    synthetic_ms = (time.perf_counter() - t0) / TSV_TIMED_STEPS * 1e3
+    synthetic_ms = (time.perf_counter() - t0) / timed_steps * 1e3
     waits = []
     t0 = time.perf_counter()
-    for _ in range(TSV_TIMED_STEPS):
+    for _ in range(timed_steps):
         w0 = time.perf_counter()
         batch = next(feed)
         waits.append((time.perf_counter() - w0) * 1e3)
         state, _ = step_k(state, *batch)
     torch.cuda.synchronize()
-    tsv_ms = (time.perf_counter() - t0) / TSV_TIMED_STEPS * 1e3
+    tsv_ms = (time.perf_counter() - t0) / timed_steps * 1e3
     timed_launches = read_launches()
+    kernels = TRAIN_STEP_KERNELS[arch]
     ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
-          and launches == {k: 2 for k in TRAIN_STEP_KERNELS["xlarge"]}
-          and timed_launches == {k: 4 + 2 * TSV_TIMED_STEPS
-                                 for k in TRAIN_STEP_KERNELS["xlarge"]})
-    prof = profile_steps("criteo-kaggle/xlarge, TSV-fed", lambda: step_k(state, *next(feed)), 3)
-    emit({"phase": "data", "kernel_vs_plain_tsv_batches": 2, "losses": losses_k,
-          "losses_plain": losses_p, "max_loss_diff": loss_diff, "max_logit_diff": logit_diff,
-          "max_param_diff": param_diff,
-          "synthetic_step_ms_phase3": synthetic_step_ms,
-          "synthetic_step_ms_unsynced": synthetic_ms, "tsv_step_ms_unsynced": tsv_ms,
-          "tsv_over_synthetic": tsv_ms / synthetic_ms,
-          "host_wait_ms_per_step": waits, "host_wait_ms_median": float(np.median(waits)),
-          "tsv_examples_per_s": BATCH / tsv_ms * 1e3,
-          "profiled_busy_share": prof["device_busy_share"],
-          "phase_s": time.perf_counter() - t_phase, "ok": ok})
-    if not ok:
-        raise SystemExit("TSV batches through the kernels failed (see the 'data' line)")
-    add_launches(rows_out, launches)
-    add_launches(rows_out, timed_launches)
+          and all(math.isfinite(x) for x in losses_k + losses_p)
+          and shapes == [(BATCH, spec.num_dense), (BATCH, spec.num_sparse), (BATCH, 1)]
+          and launches == {k: 2 for k in kernels}
+          and timed_launches == {k: 2 * warm + 2 * timed_steps for k in kernels})
+    res = {"arch": arch, "kernel_vs_plain_tsv_batches": 2, "batch_shapes": shapes,
+           "losses": losses_k, "losses_plain": losses_p, "max_loss_diff": loss_diff,
+           "max_logit_diff": logit_diff, "max_param_diff": param_diff,
+           "synthetic_step_ms_unsynced": synthetic_ms, "tsv_step_ms_unsynced": tsv_ms,
+           "tsv_over_synthetic": tsv_ms / synthetic_ms, "host_wait_ms_per_step": waits,
+           "host_wait_ms_median": float(np.median(waits)),
+           "tsv_examples_per_s": BATCH / tsv_ms * 1e3, "launches": launches, "ok": ok}
+    if profile:
+        prof = profile_steps(f"{arch}, TSV-fed", lambda: step_k(state, *next(feed)), 3)
+        res["profiled_busy_share"] = prof["device_busy_share"]
+    add_launches(rows_out, launches, spec.name)
+    add_launches(rows_out, timed_launches, spec.name)
     del model_k, state, feed, synthetic
     torch.cuda.empty_cache()
+    return res
 
 
 def phase_dense(rows_out, sparse_step_ms: float):
@@ -1659,7 +1751,7 @@ def phase_dense(rows_out, sparse_step_ms: float):
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
     vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
-    plan = xlarge_plan(vocab)
+    plan = best_plan(XL, vocab)
     batches = device_batches(np.random.RandomState(2), DENSE_STEPS, BATCH, vocab)
 
     def recording(opt, log):
@@ -1796,7 +1888,7 @@ def phase_micro(rows_out):
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
     vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
-    plan = xlarge_plan(vocab)
+    plan = best_plan(XL, vocab)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
 
     def run(micro, batches):
@@ -1820,11 +1912,11 @@ def phase_micro(rows_out):
     acc_diff = max((acc_1[k] - acc_2[k]).abs().max().item() for k in acc_1)
     loss_diff = max(abs(a - b) for a, b in zip(one[2], two[2]))
     logit_diff = (one[4] - two[4]).abs().max().item()
-    want_two = Counter({k: 2 * MICRO_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]})
+    want_two = Counter({k: 2 * MICRO_STEPS for k in TRAIN_STEP_KERNELS[XL]})
     want_two["table_update"] = MICRO_STEPS
     ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
           and acc_diff <= PARAM_TOL
-          and one[5] == {k: MICRO_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]}
+          and one[5] == {k: MICRO_STEPS for k in TRAIN_STEP_KERNELS[XL]}
           and two[5] == dict(want_two))
     emit({"phase": "micro", "arch": "criteo-kaggle/xlarge", "batch": BATCH,
           "steps": MICRO_STEPS, "losses_micro1": one[2], "losses_micro2": two[2],
@@ -2142,13 +2234,16 @@ def timed_steps(fn, n: int) -> tuple:
     return times, launches
 
 
-def join_launches(rows_out, launches: dict, batch: int, hbm, gen) -> None:
+def join_launches(rows_out, launches: dict, batch: int, hbm, gen, table=None) -> None:
     """Launches counted at one batch into the rows "<kernel>_<shape>_b<batch>";
     a row that does not exist yet is made first, its kernel checked against the
     plain version at that shape and timed (`check_dot_scores`,
-    `check_transformer_body`)."""
+    `check_transformer_body`, `check_table_update`).  table: (name, vocab) of
+    the run's table, whose update goes into the row "<name>_b<batch>"."""
     suffix = f"_b{batch}"
     for name, count in launches.items():
+        if name == "table_update" and table is not None:
+            name = table[0]
         row = name + suffix
         if row not in rows_out:
             dot = re.fullmatch(r"dot_scores_tril_(fwd|bwd)_n(\d+)", name)
@@ -2158,6 +2253,9 @@ def join_launches(rows_out, launches: dict, batch: int, hbm, gen) -> None:
             elif body:
                 check_transformer_body(int(body[2]), hbm, gen, rows_out, batch, suffix,
                                        (body[1],), True)
+            elif table is not None and name == table[0]:
+                check_table_update(table[1], hbm, gen, rows_out, batch, row,
+                                   kinds=("uniform",), top_rows=True)
             else:
                 raise SystemExit(f"no row for the launches of {row}")
         rows_out[row]["launches"] = rows_out[row].get("launches", 0) + count
@@ -2198,7 +2296,7 @@ def phase_profiling(ckpt: Path, tmp: Path, rows_out, hbm) -> None:
 
     # The xlarge best arch's forward at batch 512 over the search-capped table:
     # measured through the kernels and through the plain versions, counted.
-    plan = xlarge_plan(DATASETS["criteo-kaggle"].vocab_sizes(SN_VOCAB_CAP))
+    plan = best_plan(XL, DATASETS["criteo-kaggle"].vocab_sizes(SN_VOCAB_CAP))
     model = fixed_init(plan, 0, dev)
     dense = torch.zeros(SN_BATCH, 13, device=dev)
     cat = torch.zeros(SN_BATCH, 26, dtype=torch.int32, device=dev)
@@ -2703,7 +2801,8 @@ def phase_cli(space, compute_dtype="float32"):
     launches = read_launches()
     logs = out["logs"][0]
     first, last = logs["test_loss"][0], logs["test_loss"][-1]
-    train_k, eval_k = TRAIN_STEP_KERNELS[space], EVAL_KERNELS[space]
+    arch = f"criteo-kaggle/{space}"
+    train_k, eval_k = TRAIN_STEP_KERNELS[arch], EVAL_KERNELS[arch]
     if compute_dtype == "bfloat16":
         train_k, eval_k = bf16_named(train_k), bf16_named(eval_k)
     # Each train step launches every kernel of a train step once; the eval
@@ -2795,7 +2894,7 @@ def phase_multi_device(rows_out, main_step_ms: float) -> None:
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
     vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
-    plan = xlarge_plan(vocab)
+    plan = best_plan(XL, vocab)
     sched = make_lr_schedule("cosine", 0.16, 10_000, 1_000)
     batches = device_batches(np.random.RandomState(10), MD_STEPS, BATCH, vocab)
     model0 = fixed_init(plan, seed=0, device=dev)
@@ -2807,7 +2906,7 @@ def phase_multi_device(rows_out, main_step_ms: float) -> None:
     touched = torch.unique(torch.cat([ref.embedding.fused_index(c).reshape(-1).long()
                                       for _, c, _ in batches]))
     ref_acc = table_accumulator(ref_state.opt_state)
-    want = {k: MD_STEPS for k in TRAIN_STEP_KERNELS["xlarge"]}
+    want = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL]}
 
     # 10a: the table and its accumulator in host RAM.
     off = copy.deepcopy(model0)
@@ -2833,7 +2932,7 @@ def phase_multi_device(rows_out, main_step_ms: float) -> None:
     loss_err = max(abs(a - b) for a, b in zip(off_losses, ref_losses))
     param_err = dense_diff(off, ref)
     split = {k: v / (MD_STEPS - 1) * 1e3 for k, v in timings.items()}
-    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS["xlarge"] - {"table_update"}}
+    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL] - {"table_update"}}
     ok = (loss_err <= OFFLOAD_TOL and param_err <= OFFLOAD_TOL
           and table_err <= OFFLOAD_REL * table_moved and acc_err <= OFFLOAD_REL * acc_moved
           and table_moved > 0 and acc_moved > 0 and launches == want_off
@@ -2974,6 +3073,145 @@ def phase_orbax(tmp: Path) -> None:
                          "(see the 'orbax' line)")
 
 
+def phase_datasets(rows_out, tmp: Path, hbm) -> None:
+    """Phase 11: the published best archs of avazu and kdd on the card (see
+    the module docstring); the xlarge two also fed from TSV shards of their
+    datasets' columns, as phase 3a feeds criteo-kaggle/xlarge."""
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.data import pipeline
+    from nasrec_tpu_torch.data.synthetic import write_tsv_shards
+
+    t_phase = time.perf_counter()
+    for arch in DS_ARCHS:
+        step_ms = phase_main(arch, rows_out, "datasets")
+        phase_amp(arch, rows_out, step_ms, "datasets")
+        if not arch.endswith("/xlarge"):
+            continue
+        spec = DATASETS[arch.split("/")[0]]
+        root = tmp / f"tsv_{spec.name}"
+        t0 = time.perf_counter()
+        write_tsv_shards(str(root), spec.num_dense, spec.num_sparse,
+                         {"trainval": DS_TSV_ROWS}, DS_TSV_SHARDS, seed=0)
+        write_s = time.perf_counter() - t0
+        train_fn, _ = pipeline.make_dataset_iterators(
+            spec.name, str(root), train_batch_size=BATCH, test_batch_size=BATCH,
+            vocab_cap=VOCAB_CAP, use_native=True)
+        res = tsv_vs_plain_and_timed(arch, train_fn, DS_TSV_TIMED_STEPS, 1, rows_out)
+        emit({"phase": "datasets", "data": "tsv", "rows": DS_TSV_ROWS,
+              "shards": DS_TSV_SHARDS, "write_s": write_s, "synthetic_step_ms": step_ms,
+              **res})
+        if not res["ok"]:
+            raise SystemExit(f"{arch} on TSV shards failed (see its 'datasets' line)")
+    phase_launchers(tmp, rows_out, hbm)
+    emit({"phase": "datasets", "phase_s": time.perf_counter() - t_phase})
+
+
+def launches_by_batch(cli: str, args: list, launches: dict):
+    """A launcher run's launches split by the batch they ran at, as
+    [(batch, launches)], or None where they do not split as the CLI's steps
+    say: main_train runs at one batch (its test batch set to its train
+    batch); train_supernet LAUNCH_STEPS steps at its train batch (each
+    SN_STEP_LAUNCHES) and eval forwards at its test batch (each
+    SN_EVAL_LAUNCHES); the search LAUNCH_STEPS fine-tune steps at its train
+    batch and its test batch in eval chunks of SEARCH_CHUNK, each a group
+    step's launches."""
+    def flag(name):                    # argparse keeps a flag's last value
+        return int(args[len(args) - args[::-1].index(name)])
+
+    train_b = flag("--train_batch_size")
+    if cli == "main_train":
+        return [(train_b, launches)]
+    test_b = flag("--test_batch_size")
+    if cli == "train_supernet":
+        train = {k: v * LAUNCH_STEPS for k, v in SN_STEP_LAUNCHES.items()}
+        if any(launches.get(k, 0) < v for k, v in train.items()):
+            return None
+        ev = launch_diff(launches, train)
+        evals = ev.get("transformer_body_fwd_s64", 0) // SN_BLOCKS
+        if not evals or ev != {k: v * evals for k, v in SN_EVAL_LAUNCHES.items()}:
+            return None
+        return [(train_b, train), (test_b, ev)]
+    chunks = test_b // SEARCH_CHUNK
+    calls = LAUNCH_STEPS + chunks
+    if any(v % calls for v in launches.values()):
+        return None
+    return [(train_b, {k: v // calls * LAUNCH_STEPS for k, v in launches.items()}),
+            (SEARCH_CHUNK, {k: v // calls * chunks for k, v in launches.items()})]
+
+
+def phase_launchers(tmp: Path, rows_out, hbm) -> None:
+    """Each avazu and kdd launcher of nasrec_tpu_torch/scripts/ through its
+    CLI's main on the card: the flags read from the launcher file, then
+    synthetic data, a few steps and the run's own directories.  Losses
+    finite, the kernels of the run's model launched, the CLI's files
+    written; the search runs on the checkpoint of the dataset's supernet run.
+    Each run's launches go into the rows of their shapes and batches
+    (`join_launches`: a shape without a row is checked and timed first); the
+    table update's into the row of the run's synthetic table."""
+    import importlib
+    import pickle
+
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.tools.launchers import LAUNCHER_DIR, launcher_command
+    from nasrec_tpu_torch.workloads import DataOptions
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(11)
+    for dataset in DS_DATASETS:
+        ckpt = None
+        table = (f"table_update_{dataset}_synthetic",
+                 (DataOptions.synthetic_vocab,) * DATASETS[dataset].num_sparse)
+        for pattern in DS_LAUNCHERS:
+            rel = pattern.format(dataset)
+            module, args = launcher_command(LAUNCHER_DIR / rel)
+            cli = module.rsplit(".", 1)[1]
+            log_dir = tmp / "launchers" / rel.replace("/", "_").replace(".sh", "")
+            extra = ["--data_source", "synthetic", "--device", DEVICE,
+                     "--max_train_steps", str(LAUNCH_STEPS), "--max_eval_steps", "1",
+                     "--logging_dir", str(log_dir)]
+            if cli == "main_train":
+                batch = args[args.index("--train_batch_size") + 1]
+                extra += ["--test_batch_size", batch, "--test_interval", str(LAUNCH_STEPS)]
+                arch = args[args.index("--arch") + 1]
+                want = TRAIN_STEP_KERNELS[arch] | EVAL_KERNELS[arch]
+            elif cli == "train_supernet":
+                extra += ["--test_interval", str(LAUNCH_STEPS)]
+                want = set(SN_STEP_LAUNCHES) | set(SN_EVAL_LAUNCHES)
+            else:
+                extra += ["--ckpt_path", str(ckpt), "--init_population", str(LAUNCH_CANDIDATES),
+                          "--n_generations", "0", "--sample_size", str(LAUNCH_CANDIDATES // 2)]
+                want = set(SEARCH_STEP_LAUNCHES)
+            reset_launches()
+            t0 = time.perf_counter()
+            out = importlib.import_module(module).main(args + extra)
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            files = sorted(p.name for p in log_dir.iterdir())
+            if cli == "eval_subnet_from_supernet":
+                with open(log_dir / "all_results.pickle", "rb") as f:
+                    losses = [r["test_loss"] for r in pickle.load(f)]
+                ok = len(losses) == LAUNCH_CANDIDATES and all(x < 999 for x in losses)
+            else:
+                logs = out["logs"][0]
+                losses = logs["train_loss"] + logs["test_loss"]
+                ok = (out["state"].step == LAUNCH_STEPS
+                      and launches.get("table_update") == LAUNCH_STEPS)
+            if cli == "train_supernet":
+                ckpt = log_dir / "supernet_checkpoint.pkl"
+            by_batch = launches_by_batch(cli, args + extra, launches)
+            ok = (ok and all(math.isfinite(x) for x in losses) and set(launches) == want
+                  and LAUNCH_FILES[cli] <= set(files) and by_batch is not None)
+            emit({"phase": "datasets", "launcher": f"nasrec_tpu_torch/scripts/{rel}",
+                  "module": module, "overrides": extra, "losses": losses, "files": files,
+                  "launches": launches, "launches_by_batch": by_batch, "seconds": seconds,
+                  "ok": ok})
+            if not ok:
+                raise SystemExit(f"the launcher {rel} failed (see its 'datasets' line)")
+            for batch, counts in by_batch:
+                join_launches(rows_out, counts, batch, hbm, gen, table)
+
+
 def main() -> int:
     import torch
 
@@ -2993,13 +3231,13 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device(build)
     rows_out = phase_kernels(hbm_bytes_per_s(smi))
-    step_ms = {space: phase_main(space, rows_out) for space in ("xlarge", "autoctr")}
-    for space in ("xlarge", "autoctr"):
-        phase_amp(space, rows_out, step_ms[space])
+    step_ms = {arch: phase_main(arch, rows_out) for arch in (XL, AC)}
+    for arch in (XL, AC):
+        phase_amp(arch, rows_out, step_ms[arch])
     tmp = Path(tempfile.mkdtemp(prefix="nasrec_smoke_"))
     try:
-        phase_data(rows_out, tmp, step_ms["xlarge"])
-        phase_dense(rows_out, step_ms["xlarge"])
+        phase_data(rows_out, tmp, step_ms[XL])
+        phase_dense(rows_out, step_ms[XL])
         phase_micro(rows_out)
         phase_supernet(rows_out)
         phase_supernet(rows_out, "bfloat16")
@@ -3012,9 +3250,10 @@ def main() -> int:
         phase_search_rank()
         phase_search_cli(ckpt, tmp)
         phase_profiling(ckpt, tmp, rows_out, hbm_bytes_per_s(smi))
-        phase_multi_device(rows_out, step_ms["xlarge"])
+        phase_multi_device(rows_out, step_ms[XL])
         phase_fanout(ckpt, tmp)
         phase_orbax(tmp)
+        phase_datasets(rows_out, tmp, hbm_bytes_per_s(smi))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     idle = [name for name, row in rows_out.items() if not row.get("launches")]

@@ -1,0 +1,27 @@
+#!/bin/bash
+# Ablation EA: no fine-tuning (1-step) candidate eval.
+# Ref: nasrec/scripts/run_ea/study/criteo_run_ea_from_supernet_xlarge-noft.sh
+# PyTorch/CUDA port of scripts/run_ea/study/criteo_xlarge_noft.sh:
+# the same flags, run by the nasrec_tpu_torch CLI on the card.
+CKPT_PATH=./experiments/supernet/criteo_xlarge_lr0.12/supernet_checkpoint.pkl
+
+python -u -m nasrec_tpu_torch.cli.eval_subnet_from_supernet \
+    --root_dir ./data/criteo_kaggle_autoctr/ \
+    --dataset criteo-kaggle \
+    --ea_top_k 2 \
+    --ckpt_path $CKPT_PATH \
+    --learning_rate 0.04 \
+    --n_childs 8 \
+    --n_generations 240 \
+    --init_population 128 \
+    --sample_size 64 \
+    --method regularized-ea \
+    --use_layernorm 1 \
+    --max_train_steps 1 \
+    --train_batch_size 512 \
+    --test_batch_size 8192 \
+    --max_eval_steps 150 \
+    --config xlarge \
+    --cap_vocab 1 \
+    --group_size 8 \
+    --logging_dir ./experiments/ea-study/criteo_xlarge_noft

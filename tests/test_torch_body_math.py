@@ -138,3 +138,20 @@ def test_slot_minor_layout_is_recognised():
     assert tb._slot_minor(x) and not x.is_contiguous()
     assert not tb._slot_minor(x.contiguous())
     assert not tb._slot_minor(torch.zeros(4, 6, 32)[:, :, ::2])   # neither layout
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_both_layouts_are_told_apart_at_s16(batch):
+    """At S = 16 (the last block of avazu/xlarge and kdd/xlarge) both layouts
+    of x are [B, 16, 16]: only the strides tell them apart, and the body gives
+    the same values from either."""
+    torch.manual_seed(batch)
+    base = torch.randn(batch, 16, 16)                 # the slot projection's [B, 16, S]
+    x = base.transpose(1, 2)
+    assert x.shape == base.shape
+    assert tb._slot_minor(x) and not tb._slot_minor(x.contiguous())
+    assert not tb._slot_minor(base)
+    params = [0.3 * torch.randn(s) for s in tb.PARAM_SHAPES]
+    torch.testing.assert_close(tb.transformer_body_plain(x, params),
+                               tb.transformer_body_plain(x.contiguous(), params),
+                               rtol=0, atol=0)

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py import neither jax nor the JAX package
-(nasrec_tpu), and importing the port builds no kernel."""
+(nasrec_tpu), the port's shell launchers run only its own modules, and
+importing the port builds no kernel."""
 
 import re
 import subprocess
@@ -28,8 +29,24 @@ def test_the_multi_device_layer_is_walked():
     for name in ("__init__", "distributed", "embedding", "host_embedding", "mesh", "sparse",
                  "train"):
         assert f"nasrec_tpu_torch/parallel/{name}.py" in walked, name
-    for name in ("multihost_demo", "search_fanout_demo"):
+    for name in ("multihost_demo", "search_fanout_demo", "eval_best_candidates_topk",
+                 "launchers"):
         assert f"nasrec_tpu_torch/tools/{name}.py" in walked, name
+
+
+LAUNCHERS = sorted((ROOT / "nasrec_tpu_torch" / "scripts").rglob("*.sh"))
+
+
+@pytest.mark.parametrize("path", LAUNCHERS, ids=lambda p: str(p.relative_to(ROOT)))
+def test_launcher_runs_only_port_modules(path):
+    """Every python command of a port launcher runs a module of the port."""
+    from nasrec_tpu_torch.tools.launchers import launcher_commands
+
+    commands = launcher_commands(path)
+    assert commands
+    assert all(m.startswith("nasrec_tpu_torch.") for m, _ in commands), commands
+    assert not re.search(r"\bnasrec_tpu(\.|/)|\bjax\b|bench\.py", "\n".join(
+        l for l in path.read_text().splitlines() if not l.lstrip().startswith("#")))
 
 
 def test_every_kernel_source_is_walked_and_bound():

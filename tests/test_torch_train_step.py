@@ -3,7 +3,9 @@ criteo-kaggle/xlarge subnets in the port against the JAX step
 (table_update="scatter"; attention_impl="xla" for autoctr, which has no
 transformer node, and "pallas" in interpret mode for xlarge), from the same
 transplanted weights on the same batches; then runs of the port's
-fixed-subnet workload through its CLI on the CPU.
+fixed-subnet workload through its CLI on the CPU.  The step harness
+(`run_both_steps`, `assert_state_matches`, `check_two_sparse_steps`) also
+holds the other datasets' archs (tests/test_torch_datasets*.py).
 
 Tolerance (f32, after train steps): rtol 1e-4 / atol 1e-5 on the losses,
 logits, parameters, embedding table and Adagrad accumulators.
@@ -45,55 +47,108 @@ torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+VOCAB_CAP = 50
+
+
+def capped_vocab(dataset):
+    """The dataset's slots capped at VOCAB_CAP rows, so a batch repeats rows."""
+    return tuple(min(v, VOCAB_CAP) for v in DATASETS[dataset].raw_vocab_sizes)
+
+
+def step_batches(dataset, vocab, b, n=2, seed=0):
+    """n batches of b examples: N(0, 1) dense, uniform indices, 0/1 labels."""
+    spec = DATASETS[dataset]
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(b, spec.num_dense).astype(np.float32),
+             np.stack([rng.randint(0, v, size=b) for v in vocab], 1).astype(np.int32),
+             rng.randint(0, 2, size=(b, 1)).astype(np.float32)) for _ in range(n)]
+
+
+def fixed_pair(dataset, space, attention_impl, compute_dtype=None):
+    """The published best arch of <dataset>/<space> at 7 blocks over the
+    capped vocab: the JAX apply (computing in `compute_dtype`), the port's
+    plan, the port's model holding the JAX initialisation, and that
+    initialisation."""
+    spec, vocab = DATASETS[dataset], capped_vocab(dataset)
+    jplan = jax_build_plan(jax_best_arch(dataset, space), JAX_OPS[space], 7, spec.num_dense,
+                           spec.num_sparse, vocab, attention_impl=attention_impl)
+    tplan = build_fixed_plan(get_best_arch(dataset, space), OPS_CONFIG_LIB[space], 7,
+                             spec.num_dense, spec.num_sparse, vocab)
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    params = jax.device_get(jax_fixed_init(jax.random.PRNGKey(3), jplan))
+    model = fixed_init(tplan, seed=0, device="cpu")
+    model.load_state_dict(from_jax_params(params, tplan))
+    return lambda p, d, s: jax_apply_embedded(jplan, p, d, s, **kw), tplan, model, params
+
+
+def run_both_steps(japply, model, tspec, params, batches, lr, clip=5.0, masks=(None, None),
+                   compute_dtype=torch.float32):
+    """The JAX sparse-embedding step (Adagrad, cosine schedule from `lr`,
+    table_update="scatter") from `params` and the port's step from `model`,
+    which holds the same weights, over `batches` (with the JAX and the port's
+    masks of each batch where `masks` has them); returns (JAX state, JAX
+    metrics, port state, port metrics)."""
+    vocab = tspec.vocab_sizes
+    has_masks = masks[0] is not None
+    opt = make_optimizer("adagrad")
+    jstate = init_train_state(params, opt)
+    jstep = jax_sparse_step(japply, opt, jax_lr_schedule("cosine", lr, 10, 1),
+                            jax_table_offsets(vocab), grad_clip=clip, has_masks=has_masks,
+                            donate=False, table_update="scatter")
+    for batch, m in zip(batches, masks[0] or [None] * len(batches)):
+        jstate, jm = jstep(jstate, *batch, *(() if m is None else (m,)))
+
+    tstate = init_sparse_train_state(model)
+    tstep = make_sparse_embedding_train_step(make_lr_schedule("cosine", lr, 10, 1),
+                                             grad_clip=clip, has_masks=has_masks,
+                                             compute_dtype=compute_dtype)
+    for batch, m in zip(batches, masks[1] or [None] * len(batches)):
+        tstate, tm = tstep(tstate, *(torch.from_numpy(x) for x in batch),
+                           *(() if m is None else (m,)))
+    assert tstate.step == int(jstate.step) == len(batches)
+    return jstate, jm, tstate, tm
+
+
+def jax_state_dicts(jstate, tspec):
+    """The JAX state's parameters and Adagrad accumulators under the port's
+    state_dict names."""
+    return (from_jax_params(jax.device_get(jstate.params), tspec),
+            from_jax_opt_state(jax.device_get(jstate.opt_state), tspec))
+
+
+def assert_state_matches(tstate, jstate, tspec, tol):
+    """Parameters (the table included) and accumulators, all float32, against
+    the JAX state's within `tol`."""
+    want_p, want_a = jax_state_dicts(jstate, tspec)
+    got_p = tstate.model.state_dict()
+    assert set(got_p) == set(want_p) == set(tstate.opt_state)
+    for name in want_p:
+        assert got_p[name].dtype == tstate.opt_state[name].dtype == torch.float32, name
+        np.testing.assert_allclose(got_p[name].numpy(), want_p[name].numpy(),
+                                   err_msg=name, **tol)
+        np.testing.assert_allclose(tstate.opt_state[name].numpy(), want_a[name].numpy(),
+                                   err_msg=name, **tol)
+
+
+def check_two_sparse_steps(dataset, space, attention_impl, b, clip=5.0):
+    """Two steps of <dataset>/<space> at batch b, port against JAX: loss,
+    logits, parameters, table and accumulators within TOL."""
+    japply, tplan, model, params = fixed_pair(dataset, space, attention_impl)
+    batches = step_batches(dataset, tplan.vocab_sizes, b)
+    jstate, jm, tstate, tm = run_both_steps(japply, model, tplan, params, batches, 0.16, clip)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **TOL)
+    np.testing.assert_allclose(tm["logits"].numpy(), np.asarray(jm["logits"]), **TOL)
+    assert_state_matches(tstate, jstate, tplan, TOL)
+
+
 # clip 0.05: the clip scales every step.  The xlarge arch runs the JAX fused
 # transformer body, whose backward needs a batch that its lane tile divides.
 @pytest.mark.parametrize("space,clip,b", [("autoctr", 5.0, 64), ("autoctr", 0.05, 64),
                                           ("xlarge", 5.0, 128)],
                          ids=["5.0", "0.05", "xlarge-5.0"])
 def test_two_sparse_steps_match_jax(space, clip, b):
-    spec = DATASETS["criteo-kaggle"]
-    vocab = tuple(min(v, 50) for v in spec.raw_vocab_sizes)   # heavy duplicates
-    jplan = jax_build_plan(jax_best_arch("criteo-kaggle", space), JAX_OPS[space],
-                           7, 13, 26, vocab,
-                           attention_impl="xla" if space == "autoctr" else "pallas")
-    tplan = build_fixed_plan(get_best_arch("criteo-kaggle", space),
-                             OPS_CONFIG_LIB[space], 7, 13, 26, vocab)
-    params = jax.device_get(jax_fixed_init(jax.random.PRNGKey(3), jplan))
-
-    rng = np.random.RandomState(0)
-    batches = [(rng.randn(b, 13).astype(np.float32),
-                np.stack([rng.randint(0, v, size=b) for v in vocab], 1).astype(np.int32),
-                rng.randint(0, 2, size=(b, 1)).astype(np.float32)) for _ in range(2)]
-
-    opt = make_optimizer("adagrad")
-    jstate = init_train_state(params, opt)
-    jstep = jax_sparse_step(
-        lambda p, d, s: jax_apply_embedded(jplan, p, d, s), opt,
-        jax_lr_schedule("cosine", 0.16, 10, 1), jax_table_offsets(vocab),
-        grad_clip=clip, donate=False, table_update="scatter")
-    for d, c, y in batches:
-        jstate, jm = jstep(jstate, d, c, y)
-
-    model = fixed_init(tplan, seed=0, device="cpu")
-    model.load_state_dict(from_jax_params(params, tplan))
-    tstate = init_sparse_train_state(model)
-    tstep = make_sparse_embedding_train_step(make_lr_schedule("cosine", 0.16, 10, 1),
-                                             grad_clip=clip)
-    for d, c, y in batches:
-        tstate, tm = tstep(tstate, *(torch.from_numpy(x) for x in (d, c, y)))
-
-    assert tstate.step == int(jstate.step) == 2
-    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **TOL)
-    np.testing.assert_allclose(tm["logits"].numpy(), np.asarray(jm["logits"]), **TOL)
-    want_p = from_jax_params(jax.device_get(jstate.params), tplan)
-    want_a = from_jax_opt_state(jax.device_get(jstate.opt_state), tplan)
-    got_p = model.state_dict()
-    assert set(got_p) == set(want_p) == set(tstate.opt_state)
-    for name in want_p:
-        np.testing.assert_allclose(got_p[name].numpy(), want_p[name].numpy(),
-                                   err_msg=name, **TOL)
-        np.testing.assert_allclose(tstate.opt_state[name].numpy(), want_a[name].numpy(),
-                                   err_msg=name, **TOL)
+    check_two_sparse_steps("criteo-kaggle", space,
+                           "xla" if space == "autoctr" else "pallas", b, clip)
 
 
 def _run_cli_on_cpu(arch, tmp_path):
