@@ -34,9 +34,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
               forward at 4096), the dot-product at n = 46 (both at 512, the
               forward at 4096) and the table update over the search-capped
               table (3,069,317 rows) at batch 512, each with cold_ms; and the
-              search's shapes: the body's eval forward at S = 64 for batch 512
-              and 1024 (an eval chunk), the dot-product forward at n = 46 for
-              batch 1024.  And in bf16 (rows "_bf16"), at batch 32768: the
+              search's shapes: a group's folded launches, the body's eval
+              forward at S = 64 and the dot-product forward at n = 46 for 8 x
+              512 and 8 x 1024 rows (a group step and an eval chunk), the
+              dot-product backward at 8 x 512; one candidate's eval chunk
+              (1024); the K-candidate body (8 candidates, each with its own
+              parameters: training forward and backward at 512 rows a
+              candidate, eval forward at 1024), bit-equal to 8 one-candidate
+              launches and held against its K-candidate plain version
+              (parameter gradients 1e-5 of their largest magnitude), with vmap
+              of nn.TransformerEncoderLayer over the stacked weights as its
+              library call, and the same in bf16 (held and timed on a line of
+              its own: no search runs it, the evaluator being float32 as the
+              JAX package's is); the table update over 8 stacked search-capped
+              tables (24,554,536 rows).  And in bf16 (rows
+              "_bf16"), at batch 32768: the
               body and the attention core at S = 64, 48 and 16, the
               dot-product at n = 40, 9, 46, 17 and 33, each against its plain
               version in bf16 (one bf16 ulp, f32 parameter gradients within
@@ -99,16 +111,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
               of the JAX CLI (nasrec_tpu/cli/eval_subnet_from_supernet.py:3-10):
               the phase-4 supernet (space xlarge, 7 blocks, LayerNorm, 3,069,317
               capped rows, the same seed-0 weights), fine-tune batch 512, test
-              batch 8192 in eval chunks of 1024, groups of 8, final-only.  The
-              launches of single group steps (8 x 7 eval body forwards and 8 x 7
-              dot-product forwards, nothing else), their times, a profile
+              batch 8192 in eval chunks of 1024, groups of 8, final-only, each
+              group one program (its kernels launch once for the group, at 8 x
+              512 rows a step and 8 x 1024 an eval chunk).  The launches of
+              single group steps (7 eval body forwards and 7 dot-product
+              forwards, nothing else), their times and busy share, a profile
               line; a short regularized EA (16 initial candidates, 2 generations
               of 8 children, sample 8, top 2; 20 fine-tune steps and 2 test
               batches a candidate, where the canonical run takes 500 and 150:
               only the step counts are cut), counted; its first group scored
-              again through the plain versions (test losses and fine-tuned
-              finals within 1e-4); then 2 candidates in the whole-net mode for 3
-              steps (each step the 7/7/7/7/1 launches of phase 4), against plain.
+              again through the plain versions and one candidate at a time
+              (test losses and fine-tuned finals within 1e-4); then one group
+              of 8 in the whole-net mode for 3 steps as one K-candidate step
+              (each step 7 K-candidate body training forwards and backwards,
+              7 dot-product forwards and backwards at 8 x 512 rows, one table
+              update over the 8 stacked tables), against plain (test losses
+              within 1e-4, every candidate's parameters too, but where
+              relu_edge_leaves shows a ReLU input within rounding of zero
+              taking one side in each route: it replays both routes, finds
+              the first step at which the parameters part, the batch rows
+              whose ReLU input changes sign between the two states before it,
+              and requires the gradients to differ there and to agree within
+              1e-4 of their largest magnitude without those rows), and one
+              candidate at a time (each step phase 4's 7/7/7/7/1 launches),
+              against plain:
+              seconds, step ms, launches, peak memory of each, the forms'
+              test losses within 2e-4 of each other; the LayerNorm-calibrate
+              mode as one K-candidate step for 3 steps (no table update),
+              against plain.
   7. search_rank  the JAX-trained supernet of experiments/search_quality_proxy
               re-scores the 24 initial candidates of its all_results.pickle with
               the proxy's protocol (experiments/search_quality_proxy.py: fine-tune
@@ -232,6 +262,14 @@ EXP_RATE = 132 * 16 * 1.98e9
 # 1e-3 and parameters within 1e-4 (absolute).
 KERNEL_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-4
+# The K-candidate body's parameter gradients (K = 8 candidates of 512 rows,
+# 32,768 positions a candidate) against its plain version: 1e-5 of their
+# largest magnitude (or of 1).  Against one-candidate launches: equal bits.
+K_PARAM_GRAD_TOL = 1e-5
+# The whole-net mode's two forms (one K-candidate step, one candidate at a
+# time) against each other: test losses within what the JAX package's own
+# two forms are held to (tests/test_search.py, 2e-4 relative).
+WHOLE_FORMS_REL_TOL = 2e-4
 RELU_MARGIN = 1e-5   # |ReLU input| below this: the side taken is a matter of rounding
 LOSS_TOL, LOGIT_TOL, PARAM_TOL = 1e-4, 1e-3, 1e-4
 # Tolerances (bf16 compute: activations in bf16, f32 inside the kernels).
@@ -348,19 +386,40 @@ SN_EVAL_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
 # The search (phase 6) at the canonical search configuration: the phase-4
 # supernet, groups of 8 final-only candidates, fine-tune batch 512, test batch
 # 8192 in eval chunks of 1024.  Cut: the step counts only (20 fine-tune steps
-# and 2 test batches a candidate; the canonical run takes 500 and 150).
+# and 2 test batches a candidate; the canonical run takes 500 and 150).  A
+# group runs as one program: its kernels launch at 8 x 512 rows a step and
+# 8 x 1024 an eval chunk.
 SEARCH_GROUP = 8
 SEARCH_STEPS, SEARCH_EVAL_STEPS = 20, 2
 SEARCH_TEST_BATCH, SEARCH_CHUNK = 8192, 1024
 SEARCH_TRAIN_BATCHES = 8          # distinct fine-tune batches, looped
 SEARCH_EA = dict(init_population=16, n_generations=2, n_childs=8, sample_size=8, top_k=2)
 SEARCH_CANONICAL_STEPS = (500, 150)
-SEARCH_WHOLE_CANDIDATES, SEARCH_WHOLE_STEPS = 2, 3
-# A final-only group step runs the frozen body once a candidate under no_grad:
-# the eval body forward and the dot-product forward in every block, nothing
-# else; an eval chunk launches the same.
-SEARCH_STEP_LAUNCHES = {"transformer_body_fwd_s64": SEARCH_GROUP * SN_BLOCKS,
-                        "dot_scores_tril_fwd_n46": SEARCH_GROUP * SN_BLOCKS}
+SEARCH_STEP_ROWS, SEARCH_CHUNK_ROWS = SEARCH_GROUP * SN_BATCH, SEARCH_GROUP * SEARCH_CHUNK
+SEARCH_WHOLE_CANDIDATES, SEARCH_WHOLE_STEPS = SEARCH_GROUP, 3
+# The whole-net group against the plain versions: every candidate's test
+# loss within LOSS_TOL and every parameter within PARAM_TOL, but where a ReLU
+# edge is shown to part the two routes (relu_edge_leaves): a ReLU input
+# within rounding of zero takes one side in one route and the other side in
+# the other, so a gradient differs by a whole term and Adagrad carries it on.
+# A final-only group step runs the frozen body once for the group under
+# no_grad: the eval body forward and the dot-product forward in every block,
+# nothing else; an eval chunk launches the same.
+SEARCH_STEP_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
+                        "dot_scores_tril_fwd_n46": SN_BLOCKS}
+# A whole-net group step (batch_candidates, the default): the K-candidate
+# body's training forward and backward and the dot-product at 8 x 512 rows
+# in every block, one table update over the 8 stacked tables; its eval
+# chunk the K-candidate eval forward and the dot-product forward.
+WHOLE_STEP_LAUNCHES = {f"transformer_body_fwd_train_s64_k{SEARCH_GROUP}": SN_BLOCKS,
+                       f"transformer_body_bwd_s64_k{SEARCH_GROUP}": SN_BLOCKS,
+                       "dot_scores_tril_fwd_n46": SN_BLOCKS, "dot_scores_tril_bwd_n46": SN_BLOCKS,
+                       "table_update": 1}
+WHOLE_EVAL_LAUNCHES = {f"transformer_body_fwd_s64_k{SEARCH_GROUP}": SN_BLOCKS,
+                       "dot_scores_tril_fwd_n46": SN_BLOCKS}
+# LayerNorm-calibrate: the same but the table update (the table is frozen);
+# the body's two LayerNorms train, so each candidate has its own parameters.
+LN_STEP_LAUNCHES = {k: v for k, v in WHOLE_STEP_LAUNCHES.items() if k != "table_update"}
 # The search-quality proxy (phase 7; experiments/search_quality_proxy.py:57-58,
 # :138-144, :202-210): its JAX-trained supernet and the protocol of its EA.
 PROXY_DIR = ROOT / "experiments" / "search_quality_proxy"
@@ -822,6 +881,143 @@ def check_transformer_body(slots, hbm, gen, rows_out, batch=BATCH, suffix="",
     torch.cuda.empty_cache()
 
 
+LIB_BODY_NAMES = ("self_attn.in_proj_weight", "self_attn.in_proj_bias", "self_attn.out_proj.weight",
+                  "self_attn.out_proj.bias", "norm1.weight", "norm1.bias", "linear1.weight",
+                  "linear1.bias", "linear2.weight", "linear2.bias", "norm2.weight", "norm2.bias")
+
+
+def check_transformer_body_k(hbm, gen, rows_out, batch, kinds, dtype="float32",
+                             k=SEARCH_GROUP, slots=64) -> None:
+    """The K-candidate body kernels (the whole-net group's form) at k
+    candidates of `batch` rows, [k * batch, slots, 16] as the slot projection
+    leaves it, each candidate with its own parameters [k, ...]: every output
+    and gradient bit-equal to k one-candidate launches on the candidates'
+    rows, and held against the K-candidate plain version (the one-candidate
+    kernels' tolerances, the parameter gradients to K_PARAM_GRAD_TOL of their
+    largest magnitude in f32); rows "transformer_body_<kind>_s<S>_k<k>[_bf16]
+    _b<batch>" for `kinds`, with cold_ms.  The library yardstick is
+    torch.func.vmap of nn.TransformerEncoderLayer over the stacked weights
+    (functional_call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nasrec_tpu_torch.ops.kernels import transformer_body as tb
+    from nasrec_tpu_torch.ops.kernels.attention import softmax_lse2, tiny_head_attention_plain
+
+    dev = torch.device(DEVICE)
+    dt = dtype_of(dtype)
+    bf16 = dt == torch.bfloat16
+    suffix = f"_k{k}" + ("_bf16" if bf16 else "") + f"_b{batch}"
+    n = k * batch
+    x = torch.randn(n, 16, slots, device=dev, generator=gen).to(dt).transpose(1, 2)
+    dout = torch.randn(n, slots, 16, device=dev, generator=gen).to(dt)
+    params = []
+    for name, shape in zip(tb.PARAM_NAMES, tb.PARAM_SHAPES):
+        p = 0.3 * torch.randn((k,) + shape, device=dev, generator=gen)
+        params.append(p + 0.17 if name in ("attn_ln_w", "fc_ln_w") else p)
+    flat = tb.flatten_params(params)
+    runs = [slice(i * batch, (i + 1) * batch) for i in range(k)]
+    unsure = torch.cat([relu_edge_rows(x[r].float(), [p[i] for p in params])
+                        for i, r in enumerate(runs)])
+    dout[unsure] = 0.0
+
+    out_e, _, _ = tb.transformer_body_fwd_kernel(x, flat, save=False)
+    out_t, o_k, stats_k = tb.transformer_body_fwd_kernel(x, flat, save=True)
+    dx_k, dflat_k = tb.transformer_body_bwd_kernel(x, dout, o_k, stats_k, flat)
+    same_singles = True
+    for i, r in enumerate(runs):
+        oe, _, _ = tb.transformer_body_fwd_kernel(x[r], flat[i], save=False)
+        ot, oi, si = tb.transformer_body_fwd_kernel(x[r], flat[i], save=True)
+        dxi, dfi = tb.transformer_body_bwd_kernel(x[r], dout[r].contiguous(), oi, si, flat[i])
+        same_singles = (same_singles and torch.equal(out_e[r], oe) and torch.equal(out_t[r], ot)
+                        and torch.equal(o_k[r], oi) and torch.equal(stats_k[r], si)
+                        and torch.equal(dx_k[r], dxi) and torch.equal(dflat_k[i], dfi))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        qkv = torch.func.vmap(F.linear)(x.float().reshape(k, batch, slots, 16), params[0],
+                                        params[1]).reshape(n, slots, 48)
+        o_p, stats_p = tiny_head_attention_plain(qkv), softmax_lse2(qkv)
+        del qkv
+    xg = x.clone().requires_grad_(True)
+    pg = [p.clone().requires_grad_(True) for p in params]
+    out_g = tb.transformer_body_k_plain(xg, pg)
+    grads_p = torch.autograd.grad(out_g, [xg] + pg, dout, retain_graph=True)
+    param_tol = BF16_PARAM_GRAD_TOL if bf16 else K_PARAM_GRAD_TOL
+    errs, ok = {}, same_singles
+    for key, got, want, tol in (
+            [("out", out_e, out_g.detach(), KERNEL_REL_TOL), ("o", o_k, o_p, KERNEL_REL_TOL),
+             ("stats", stats_k, stats_p, KERNEL_REL_TOL), ("dx", dx_k, grads_p[0], GRAD_REL_TOL)]
+            + [(f"d_{nm}", g.reshape(w.shape), w, param_tol)
+               for nm, g, w in zip(tb.PARAM_NAMES, dflat_k.split(tb.PARAM_SIZES, dim=1),
+                                   grads_p[1:])]):
+        errs[key], good = agree(got, want, tol)
+        ok = ok and good
+    emit({"phase": "kernels", "kernel": "transformer_body", "form": f"{k} candidates",
+          "dtype": dtype, "slots": slots, "batch_per_candidate": batch, "max_abs_err": errs,
+          "equal_bits_to_one_candidate_launches": same_singles,
+          "rows_at_a_relu_edge": int(unsure.sum()), "ok": ok})
+    if not ok:
+        raise SystemExit(f"the {k}-candidate transformer_body S={slots} ({dtype}) disagrees "
+                         "with its plain version or with one-candidate launches")
+    del o_p, stats_p
+
+    lib = torch.nn.TransformerEncoderLayer(16, 8, dim_feedforward=16, dropout=0.0,
+                                           batch_first=True, norm_first=False, device=dev,
+                                           dtype=dt)
+    stacked = {nm: p.detach().to(dt) for nm, p in zip(LIB_BODY_NAMES, params)}
+    stacked_g = {nm: p.clone().requires_grad_(True) for nm, p in stacked.items()}
+    xk = x.reshape(k, batch, slots, 16)
+    xl = xk.clone().requires_grad_(True)
+
+    def lib_call(ps, xx):
+        return torch.func.vmap(lambda p, xi: torch.func.functional_call(lib, p, (xi,)))(ps, xx)
+
+    def lib_eval():
+        with torch.no_grad():
+            return lib_call(stacked, xk)
+
+    lib_tol = BF16_LIB_TOL if bf16 else 10 * KERNEL_REL_TOL
+    try:
+        out_l = lib_call(stacked_g, xl)
+        lib_err, lib_ok = within(out_l.detach().reshape(n, slots, 16), out_g.detach(), lib_tol)
+        note = None
+    except RuntimeError as exc:
+        out_l, lib_err, lib_ok, note = None, None, False, str(exc)[:200]
+    emit({"phase": "kernels", "library": "vmap(nn.TransformerEncoderLayer)", "dtype": dtype,
+          "form": f"{k} candidates", "slots": slots, "batch_per_candidate": batch,
+          "max_abs_err_vs_plain": lib_err, "agrees": lib_ok, "error": note})
+    dout_l = dout.reshape(k, batch, slots, 16)
+
+    pos = n * slots
+    f_fwd, f_bwd = body_flops(slots)
+    act, f32 = pos * 16 * x.element_size(), pos * 16 * 4
+    for kind, kern, plain, lib_fn, nbytes, flops, err in (
+        ("fwd",
+         lambda: tb.transformer_body_fwd_kernel(x, flat, save=False),
+         lambda: no_grad_call(tb.transformer_body_k_plain, x, params), lib_eval,
+         2 * act, f_fwd, errs["out"]),
+        ("fwd_train",
+         lambda: tb.transformer_body_fwd_kernel(x, flat, save=True),
+         lambda: tb.transformer_body_k_plain(xg, pg), lambda: lib_call(stacked_g, xl),
+         2 * act + 1.5 * f32, f_fwd, max(errs["out"], errs["o"], errs["stats"])),
+        ("bwd",
+         lambda: tb.transformer_body_bwd_kernel(x, dout, o_k, stats_k, flat),
+         lambda: torch.autograd.grad(out_g, [xg] + pg, dout, retain_graph=True),
+         lambda: torch.autograd.grad(out_l, [xl, *stacked_g.values()], dout_l,
+                                     retain_graph=True),
+         3 * act + 1.5 * f32, f_bwd, max(v for key, v in errs.items() if key.startswith("d"))),
+    ):
+        if kind not in kinds:
+            continue
+        name = f"transformer_body_{kind}_s{slots}{suffix}"
+        rows_out[name] = kernel_row(name, BODY_SOURCE, BODY_REPLACES, err, kern, plain,
+                                    lib_fn if lib_ok else None, nbytes + 2 * flat.numel() * 4,
+                                    flops * pos, hbm, heavy=True, exps=8 * slots * pos,
+                                    cold=True)
+    del out_g, out_l, grads_p, xg, xl, stacked_g
+    torch.cuda.empty_cache()
+
+
 def no_grad_call(fn, *args):
     import torch
 
@@ -1145,18 +1341,34 @@ def phase_kernels(hbm):
     # SN_EVAL_BATCH in the eval forward ("_b4096"); the table update over the
     # search-capped table.
     tr, ev = f"_b{SN_BATCH}", f"_b{SN_EVAL_BATCH}"
-    # The search's shapes: the eval forward at 512 (a fine-tune step) and at
-    # SEARCH_CHUNK (an eval chunk), rows "_b512" and "_b1024".
-    ch = f"_b{SEARCH_CHUNK}"
-    check_transformer_body(64, hbm, gen, rows_out, SN_BATCH, tr, ("fwd", "fwd_train", "bwd"),
-                           True)
+    # The search's shapes: a group's folded launches at 8 x 512 rows (a
+    # fine-tune step, "_b4096") and 8 x 1024 (an eval chunk, "_b8192"); one
+    # candidate's eval chunk (the one-at-a-time whole-net form, "_b1024");
+    # the whole-net group's K-candidate body, 8 candidates of 512 rows in
+    # training and of 1024 in an eval chunk; the table update over its 8
+    # stacked tables.
+    ch, st, sc = f"_b{SEARCH_CHUNK}", f"_b{SEARCH_STEP_ROWS}", f"_b{SEARCH_CHUNK_ROWS}"
+    assert st == ev
+    check_transformer_body(64, hbm, gen, rows_out, SN_BATCH, tr, ("fwd_train", "bwd"), True)
     check_transformer_body(64, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",), True)
     check_transformer_body(64, hbm, gen, rows_out, SEARCH_CHUNK, ch, ("fwd",), True)
+    check_transformer_body(64, hbm, gen, rows_out, SEARCH_CHUNK_ROWS, sc, ("fwd",), True)
+    check_transformer_body_k(hbm, gen, rows_out, SN_BATCH, ("fwd_train", "bwd"))
+    check_transformer_body_k(hbm, gen, rows_out, SEARCH_CHUNK, ("fwd",))
+    # The K-candidate body in bf16: no search runs it (the evaluator is
+    # float32), so it is held and timed here and kept off the kernels line.
+    off_path = {}
+    check_transformer_body_k(hbm, gen, off_path, SN_BATCH, ("fwd_train", "bwd"), "bfloat16")
+    check_transformer_body_k(hbm, gen, off_path, SEARCH_CHUNK, ("fwd",), "bfloat16")
+    emit({"phase": "kernels", "held_off_the_main_paths": list(off_path.values())})
     check_dot_scores(46, hbm, gen, rows_out, SN_BATCH, tr)
-    check_dot_scores(46, hbm, gen, rows_out, SN_EVAL_BATCH, ev, ("fwd",))
+    check_dot_scores(46, hbm, gen, rows_out, SN_EVAL_BATCH, ev)
     check_dot_scores(46, hbm, gen, rows_out, SEARCH_CHUNK, ch, ("fwd",))
+    check_dot_scores(46, hbm, gen, rows_out, SEARCH_CHUNK_ROWS, sc, ("fwd",))
     check_table_update(spec.vocab_sizes(SN_VOCAB_CAP), hbm, gen, rows_out, SN_BATCH,
                        f"table_update{tr}")
+    check_table_update(spec.vocab_sizes(SN_VOCAB_CAP) * SEARCH_GROUP, hbm, gen, rows_out,
+                       SN_BATCH, f"table_update_k{SEARCH_GROUP}{tr}", kinds=("uniform",))
     _l2_scratch.clear()      # the main paths' peak memory is read without it
     torch.cuda.empty_cache()
     return rows_out
@@ -2370,11 +2582,12 @@ def phase_profiling(ckpt: Path, tmp: Path, rows_out, hbm) -> None:
     finally:
         profiling.measure_latency = real_measure
     measured = runs["measured"]
-    # The evaluator's group steps run at batch 512, its eval chunks at 1024.
+    # The evaluator's group steps run at 8 x 512 rows, its eval chunks at
+    # 8 x 1024.
     for run in runs.values():
         if run["evaluator"] == evaluator_want:
             for kernel, per_step in SEARCH_STEP_LAUNCHES.items():
-                for batch, n in ((SN_BATCH, PROF_STEPS), (SEARCH_CHUNK, chunks)):
+                for batch, n in ((SEARCH_STEP_ROWS, PROF_STEPS), (SEARCH_CHUNK_ROWS, chunks)):
                     row = f"{kernel}_b{batch}"
                     rows_out[row]["launches"] = (rows_out[row].get("launches", 0)
                                                  + per_step * groups * n)
@@ -2455,6 +2668,189 @@ def phase_profiling(ckpt: Path, tmp: Path, rows_out, hbm) -> None:
         raise SystemExit("the profiling phase failed (see the 'profiling' lines)")
 
 
+def whole_states(cfg, model, picks, i, impl, batches, steps, args) -> list:
+    """Candidate i's parameters (its table rows included) before each step of
+    a whole-net group of `picks` and after the last, the group run through
+    `impl`."""
+    from nasrec_tpu_torch.search import make_candidate_evaluator
+
+    group = make_candidate_evaluator(cfg, model, impl=impl, **args).group(picks)
+    states = []
+    for t in range(steps):
+        states.append({n: p.clone() for n, p in group.candidate_params(i).items()})
+        group.step(*batches[t], t)
+    states.append({n: p.clone() for n, p in group.candidate_params(i).items()})
+    return states
+
+
+def relu_edge_leaves(cfg, model, picks, i, leaves, batches, steps, args) -> dict:
+    """Whether a ReLU edge explains why candidate i's `leaves` end more than
+    PARAM_TOL apart between the whole-net group's kernel route and its plain
+    route.  Both routes are replayed, candidate i's state kept before every
+    step.  At the first step after which a leaf is more than PARAM_TOL
+    apart, the two states before it must be within PARAM_TOL in every
+    parameter.  The ReLU inputs of that step's batch are recorded at both
+    states through the plain supernet (the linear nodes' activations, and
+    each transformer body's FFN input recomputed as relu_edge_rows does); the
+    rows where one of them changes sign between the states sit at a ReLU
+    edge.  The leaves' gradients at the two states must differ by more than
+    GRAD_REL_TOL, and agree within it once those rows' loss weight is zero:
+    then the whole divergence lies in rows whose ReLU input is within
+    rounding of zero, and the leaves are excused."""
+    import torch
+    import torch.nn.functional as F
+
+    from nasrec_tpu_torch.choices import choice_to_masks
+    from nasrec_tpu_torch.ops import attention, common
+    from nasrec_tpu_torch.ops.common import LN_EPS
+    from nasrec_tpu_torch.ops.kernels.attention import tiny_head_attention_plain
+
+    sk, sp = (whole_states(cfg, model, picks, i, impl, batches, steps, args)
+              for impl in ("auto", "plain"))
+
+    def gap(a, b, names):
+        return max((a[n] - b[n]).abs().max().item() for n in names)
+
+    t = next((t for t in range(steps) if gap(sk[t + 1], sp[t + 1], leaves) > PARAM_TOL), None)
+    if t is None:
+        return {"candidate": i, "leaves": leaves, "explained": False,
+                "error": "the replays did not part as the evaluator runs did"}
+    before = gap(sk[t], sp[t], sk[t])
+    del sk[t + 1:], sp[t + 1:]
+    net = copy.deepcopy(model).requires_grad_(True)       # the table's too
+    masks = choice_to_masks(picks[i], cfg.space, cfg.num_blocks).to(net.final.weight.device)
+    dense, cat, y = batches[t]
+    record, labels, node = [], [], ["?"]
+    relu, body = common.ACTIVATIONS["relu"], attention.transformer_body
+
+    def recording_relu(x):
+        record.append(x.detach().clone())
+        labels.append(node[0])
+        return relu(x)
+
+    def recording_body(x, params, *rest, **kw):
+        with torch.no_grad():
+            o = tiny_head_attention_plain(F.linear(x, params[0], params[1]))
+            x4 = F.layer_norm(F.linear(o, params[2], params[3]) + x, (16,), params[4],
+                              params[5], LN_EPS)
+            record.append(F.linear(x4, params[6], params[7]))
+            labels.append(node[0] + " ffn")
+        return body(x, params, *rest, **kw)
+
+    hooks = [mod.register_forward_pre_hook(lambda m, a, name=name: node.__setitem__(0, name))
+             for name, mod in net.named_modules() if re.fullmatch(r"blocks\.\d+\.nodes\.\d+", name)]
+
+    def load(state):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(state[n])
+
+    def relu_inputs(state):
+        load(state)
+        record.clear()
+        labels.clear()
+        common.ACTIVATIONS["relu"], attention.transformer_body = recording_relu, recording_body
+        try:
+            with torch.no_grad():
+                net(dense, cat, masks, "plain")
+        finally:
+            common.ACTIVATIONS["relu"], attention.transformer_body = relu, body
+        return list(record)
+
+    def grads(state, weight):
+        load(state)
+        x = net(dense, cat, masks, "plain").float()
+        per_row = torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-torch.abs(x)))
+        named = dict(net.named_parameters())
+        return torch.autograd.grad((per_row[:, 0] * weight).mean(), [named[n] for n in leaves],
+                                   allow_unused=True, materialize_grads=True)
+
+    try:
+        ins_k, ins_p = relu_inputs(sk[t]), relu_inputs(sp[t])
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = torch.zeros(dense.shape[0], dtype=torch.bool, device=dense.device)
+    flips = []
+    for label, a, b in zip(labels, ins_k, ins_p):
+        side = (a > 0) != (b > 0)
+        rows |= side.reshape(side.shape[0], -1).any(1)
+        for j in side.flatten().nonzero()[:4, 0].tolist():
+            flips.append((label, a.flatten()[j].item(), b.flatten()[j].item()))
+    ones = torch.ones(dense.shape[0], device=dense.device)
+    full = [within(a, b, GRAD_REL_TOL) for a, b in zip(grads(sk[t], ones), grads(sp[t], ones))]
+    kept = (~rows).float()
+    masked = [within(a, b, GRAD_REL_TOL) for a, b in zip(grads(sk[t], kept), grads(sp[t], kept))]
+    del net, sk, sp
+    torch.cuda.empty_cache()
+    explained = (before <= PARAM_TOL and bool(rows.any()) and not all(ok for _, ok in full)
+                 and all(ok for _, ok in masked))
+    return {"candidate": i, "leaves": leaves, "step": t, "state_diff_before": before,
+            "rows_at_the_edge": rows.nonzero()[:, 0].tolist(),
+            "sign_changes (node, kernel route, plain route)": flips[:8],
+            "grad_diff": max(e for e, _ in full),
+            "grad_diff_without_those_rows": max(e for e, _ in masked), "explained": explained}
+
+
+class GroupLog:
+    """Per fine-tune step and per eval batch, the launches (and the step's host
+    time, ended by a synchronize) of an evaluator run, read through its data
+    streams: a step runs between two batches of the train stream; the first
+    test batch ends a candidate's or a group's last step."""
+
+    def __init__(self):
+        self.steps, self.evals, self.t0 = [], [], None
+
+    def _close_step(self):
+        import torch
+
+        if self.t0 is not None:
+            torch.cuda.synchronize()
+            self.steps.append(((time.perf_counter() - self.t0) * 1e3, read_launches()))
+            self.t0 = None
+
+    def train(self, batches):
+        import torch
+
+        def it():
+            for b in batches:
+                self._close_step()
+                reset_launches()
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+                yield b
+        return it
+
+    def test(self, batch):
+        def it():
+            self._close_step()
+            reset_launches()
+            yield batch
+            self.evals.append(read_launches())
+        return it
+
+
+def add_group_launches(rows_out, launches: dict, per_candidate: int, folded: int,
+                       table: str) -> None:
+    """An evaluator's launches into their rows: the K-candidate body's at the
+    batch a candidate (its launch keys carry "_k<K>"), every other kernel's at
+    the rows it launched on, the table update's into `table`.  A bf16
+    launch of another kernel at these batches has no row (phase 4 leaves its
+    bf16 launches out the same way)."""
+    for key, count in launches.items():
+        if key == "table_update":
+            row = table
+        elif re.search(r"_k\d+", key):
+            row = f"{key}_b{per_candidate}"
+        else:
+            row = f"{key}_b{folded}"
+        if row not in rows_out:
+            if key.endswith("_bf16"):
+                continue
+            raise SystemExit(f"no row for the search's launches of {row}")
+        rows_out[row]["launches"] = rows_out[row].get("launches", 0) + count
+
+
 def phase_search(rows_out):
     """The weight-shared search at the canonical search configuration (see
     the module docstring, phase 6)."""
@@ -2492,8 +2888,8 @@ def phase_search(rows_out):
     d, c, _ = test_batches[0]
     chunk_ms, chunk_launches = timed_steps(
         lambda: group.logits(d[:SEARCH_CHUNK], c[:SEARCH_CHUNK]), 4)
-    profile_steps("search group step (8 candidates, batch 512)",
-                  lambda: group.step(*train_batches[0], 0), 3)
+    step_profile = profile_steps("search group step (8 candidates, batch 512)",
+                                 lambda: group.step(*train_batches[0], 0), 3)
     del group
 
     # A short regularized EA, counted; the first group's finals kept.
@@ -2523,7 +2919,8 @@ def phase_search(rows_out):
     want_launches = {k: v * groups * (SEARCH_STEPS + chunks)
                      for k, v in SEARCH_STEP_LAUNCHES.items()}
 
-    # The first group again, through the plain versions.
+    # The first group again: through the plain versions, and one candidate
+    # at a time through the kernels.
     reset_launches()
     plain = make_candidate_evaluator(cfg, model, impl="plain", **args)
     res_p = plain(first["choices"], train_iter_fn, test_iter_fn)
@@ -2532,6 +2929,13 @@ def phase_search(rows_out):
     final_diff = max((first["weight"] - plain.last_group.weight).abs().max().item(),
                      (first["bias"] - plain.last_group.bias).abs().max().item())
     del plain
+    one_loss_diff = one_final_diff = 0.0
+    for i, choice in enumerate(first["choices"]):
+        one = ev([choice], train_iter_fn, test_iter_fn)[0]
+        one_loss_diff = max(one_loss_diff, abs(one["test_loss"] - first["results"][i]["test_loss"]))
+        one_final_diff = max(one_final_diff,
+                             (ev.last_group.weight[0] - first["weight"][i]).abs().max().item(),
+                             (ev.last_group.bias[0] - first["bias"][i]).abs().max().item())
 
     step_med = float(np.median(step_ms[1:]))
     chunk_med = float(np.median(chunk_ms[1:]))
@@ -2544,7 +2948,8 @@ def phase_search(rows_out):
           and all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in explored)
           and all(x == SEARCH_STEP_LAUNCHES for x in step_launches + chunk_launches)
           and ea_launches == want_launches and not plain_launches
-          and loss_diff <= LOSS_TOL and final_diff <= PARAM_TOL)
+          and loss_diff <= LOSS_TOL and final_diff <= PARAM_TOL
+          and one_loss_diff <= LOSS_TOL and one_final_diff <= PARAM_TOL)
     emit({"phase": "search", "config": "criteo-kaggle xlarge supernet, final-only",
           "blocks": SN_BLOCKS, "vocab_rows": int(sum(vocab)), "group": SEARCH_GROUP,
           "batch": SN_BATCH, "test_batch": SEARCH_TEST_BATCH, "eval_chunk": SEARCH_CHUNK,
@@ -2553,65 +2958,138 @@ def phase_search(rows_out):
           "s_per_candidate": ea_s / len(explored),
           "s_per_candidate_canonical_extrapolated": s_per_cand_canonical,
           "group_step_ms": step_med, "group_step_ms_all": step_ms,
+          "group_step_device_busy_share": step_profile.get("device_busy_share"),
           "eval_chunk_ms": chunk_med, "eval_chunk_ms_all": chunk_ms,
           "launches_per_group_step": step_launches[0], "launches_per_eval_chunk":
           chunk_launches[0], "ea_launches": ea_launches, "peak_mem_gb": peak_gb,
           "test_losses": [r["test_loss"] for r in explored],
           "history_losses": [r["test_loss"] for r in history],
           "first_group_max_loss_diff_vs_plain": loss_diff,
-          "first_group_max_final_diff_vs_plain": final_diff, "ok": ok})
+          "first_group_max_final_diff_vs_plain": final_diff,
+          "first_group_max_loss_diff_vs_one_at_a_time": one_loss_diff,
+          "first_group_max_final_diff_vs_one_at_a_time": one_final_diff, "ok": ok})
     if not ok:
         raise SystemExit("the search drive failed (see the 'search' line)")
-    tr, ch = f"_b{SN_BATCH}", f"_b{SEARCH_CHUNK}"
     for kernel, count in SEARCH_STEP_LAUNCHES.items():
-        rows_out[kernel + tr]["launches"] = (rows_out[kernel + tr].get("launches", 0)
-                                             + count * groups * SEARCH_STEPS)
-        rows_out[kernel + ch]["launches"] = (rows_out[kernel + ch].get("launches", 0)
-                                             + count * groups * chunks)
+        for rows, n in ((SEARCH_STEP_ROWS, SEARCH_STEPS), (SEARCH_CHUNK_ROWS, chunks)):
+            row = f"{kernel}_b{rows}"
+            rows_out[row]["launches"] = rows_out[row].get("launches", 0) + count * groups * n
+    del ev
 
-    # Whole-net fine-tune of 2 candidates, each step counted, against plain.
+    # The whole-net mode on one group of 8: as one K-candidate step (the
+    # default) and one candidate at a time, each step counted and timed, the
+    # batched form against the plain versions and against the other form.
     whole_args = dict(args, max_train_steps=SEARCH_WHOLE_STEPS, max_eval_steps=1,
                       finetune_mode="whole")
     picks = [r["choice"] for r in explored[:SEARCH_WHOLE_CANDIDATES]]
-    per_step = []
+    k = len(picks)
 
-    def counted_train():
-        reset_launches()
-        for b in train_batches:
-            yield b
-            per_step.append(read_launches())
-            reset_launches()
+    def whole_run(batched, impl="auto", mode="whole"):
+        log = GroupLog()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        evw = make_candidate_evaluator(cfg, model, batch_candidates=batched, impl=impl,
+                                       **dict(whole_args, finetune_mode=mode))
+        t0 = time.perf_counter()
+        res = evw(picks, log.train(train_batches), log.test(test_batches[0]))
+        torch.cuda.synchronize()
+        out = dict(seconds=time.perf_counter() - t0, results=res, log=log, evaluator=evw,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   step_ms=float(np.median([t for t, _ in log.steps[1:]])))
+        return out
 
-    def counted_test():
-        per_step.append(read_launches())       # the last fine-tune step's
-        yield test_batches[0]
+    def params_diff(g_a, g_b) -> list:
+        """Per candidate: (largest difference, its parameter, that
+        parameter's largest magnitude, the parameters more than PARAM_TOL
+        apart)."""
+        out = []
+        for i in range(k):
+            pa, pb = g_a.candidate_params(i), g_b.candidate_params(i)
+            diffs = {n: (pa[n] - pb[n]).abs().max().item() for n in pa}
+            worst = max(diffs, key=diffs.get)
+            out.append((diffs[worst], worst, pb[worst].abs().max().item(),
+                        [n for n, d in diffs.items() if d > PARAM_TOL]))
+        return out
 
-    whole = make_candidate_evaluator(cfg, model, **whole_args)
-    t0 = time.perf_counter()
-    res_w = whole(picks, counted_train, counted_test)
-    torch.cuda.synchronize()
-    whole_s = time.perf_counter() - t0
-    whole_p = make_candidate_evaluator(cfg, model, impl="plain", **whole_args)
-    reset_launches()
-    res_wp = whole_p(picks, train_iter_fn, test_iter_fn)
-    plain_launches = read_launches()
-    w_loss_diff = max(abs(a["test_loss"] - b["test_loss"]) for a, b in zip(res_w, res_wp))
-    w_param_diff = state_diff(whole.model, whole_p.model)
-    ok = (len(per_step) == SEARCH_WHOLE_CANDIDATES * SEARCH_WHOLE_STEPS
-          and all(x == SN_STEP_LAUNCHES for x in per_step) and not plain_launches
-          and all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in res_w)
-          and w_loss_diff <= LOSS_TOL and w_param_diff <= PARAM_TOL)
-    emit({"phase": "search", "mode": "whole", "candidates": SEARCH_WHOLE_CANDIDATES,
-          "steps": SEARCH_WHOLE_STEPS, "seconds": whole_s,
-          "test_losses": [r["test_loss"] for r in res_w],
-          "test_losses_plain": [r["test_loss"] for r in res_wp],
-          "max_loss_diff": w_loss_diff, "last_candidate_max_param_diff": w_param_diff,
-          "launches_per_step": per_step[0],
-          "launches_equal_every_step": all(x == per_step[0] for x in per_step),
+    batched = whole_run(True)
+    batched_p = whole_run(True, impl="plain")
+    diff_plain = max(abs(a["test_loss"] - b["test_loss"])
+                     for a, b in zip(batched["results"], batched_p["results"]))
+    per_candidate = params_diff(batched["evaluator"].last_group,
+                                batched_p["evaluator"].last_group)
+    del batched_p
+    batched.pop("evaluator")
+    torch.cuda.empty_cache()
+    edges = [relu_edge_leaves(cfg, model, picks, i, over, train_batches, SEARCH_WHOLE_STEPS,
+                              whole_args)
+             for i, (_, _, _, over) in enumerate(per_candidate) if over]
+    seq = whole_run(False)
+    seq.pop("evaluator")
+    seq_p = whole_run(False, impl="plain")
+    seq_p.pop("evaluator")
+    seq_diff = max(abs(a["test_loss"] - b["test_loss"])
+                   for a, b in zip(seq["results"], seq_p["results"]))
+    forms_rel = max(abs(a["test_loss"] - b["test_loss"]) / abs(b["test_loss"])
+                    for a, b in zip(seq["results"], batched["results"]))
+    eval_chunks = SEARCH_TEST_BATCH // SEARCH_CHUNK
+    ln = whole_run(True, mode="layernorm-calibrate")
+    ln.pop("evaluator")
+    ln_p = whole_run(True, impl="plain", mode="layernorm-calibrate")
+    ln_p.pop("evaluator")
+    ln_diff = max(abs(a["test_loss"] - b["test_loss"])
+                  for a, b in zip(ln["results"], ln_p["results"]))
+    torch.cuda.empty_cache()
+
+    def finite(run):
+        return all(math.isfinite(r["test_loss"]) and r["test_loss"] < 999 for r in run["results"])
+
+    per_eval = lambda launches: {key: v * eval_chunks for key, v in launches.items()}
+    ok = (all(x == WHOLE_STEP_LAUNCHES for _, x in batched["log"].steps)
+          and len(batched["log"].steps) == SEARCH_WHOLE_STEPS
+          and batched["log"].evals == [per_eval(WHOLE_EVAL_LAUNCHES)]
+          and all(x == SN_STEP_LAUNCHES for _, x in seq["log"].steps)
+          and len(seq["log"].steps) == k * SEARCH_WHOLE_STEPS
+          and seq["log"].evals == [per_eval(SN_EVAL_LAUNCHES)] * k
+          and all(x == LN_STEP_LAUNCHES for _, x in ln["log"].steps)
+          and ln["log"].evals == [per_eval(WHOLE_EVAL_LAUNCHES)]
+          and not any(x for _, x in ln_p["log"].steps) and ln_diff <= LOSS_TOL
+          and finite(batched) and finite(seq) and finite(ln)
+          and diff_plain <= LOSS_TOL and all(e["explained"] for e in edges)
+          and seq_diff <= LOSS_TOL
+          and not any(x for _, x in seq_p["log"].steps)
+          and forms_rel <= WHOLE_FORMS_REL_TOL)
+
+    def summary(run):
+        return {"seconds": run["seconds"], "step_ms": run["step_ms"],
+                "step_ms_all": [t for t, _ in run["log"].steps], "peak_mem_gb": run["peak_gb"],
+                "launches_per_step": run["log"].steps[0][1],
+                "launches_per_eval_batch": run["log"].evals[0],
+                "test_losses": [r["test_loss"] for r in run["results"]]}
+
+    emit({"phase": "search", "mode": "whole", "candidates": k, "steps": SEARCH_WHOLE_STEPS,
+          "batched": summary(batched), "one_at_a_time": summary(seq),
+          "batched_layernorm_calibrate": summary(ln),
+          "batched_max_loss_diff_vs_plain": diff_plain,
+          "batched_param_diff_vs_plain_by_candidate": [c[:3] for c in per_candidate],
+          "batched_params_apart_at_a_relu_edge": edges,
+          "one_at_a_time_max_loss_diff_vs_plain": seq_diff,
+          "forms_max_loss_rel_diff": forms_rel,
+          "layernorm_calibrate_max_loss_diff_vs_plain": ln_diff,
           "phase_s": time.perf_counter() - t_phase, "ok": ok})
     if not ok:
         raise SystemExit("the search's whole-net fine-tune failed (see its 'search' line)")
-    del whole, whole_p, ev, model, train_batches, test_batches
+    tr, table = f"_b{SN_BATCH}", f"table_update_b{SN_BATCH}"
+    for run, per_candidate, folded, tab in (
+            (batched, SN_BATCH, SEARCH_STEP_ROWS, f"table_update_k{SEARCH_GROUP}{tr}"),
+            (ln, SN_BATCH, SEARCH_STEP_ROWS, None), (seq, SN_BATCH, SN_BATCH, table)):
+        for _, launches in run["log"].steps:
+            add_group_launches(rows_out, launches, per_candidate, folded, tab)
+    for run, per_candidate, folded in ((batched, SEARCH_CHUNK, SEARCH_CHUNK_ROWS),
+                                       (ln, SEARCH_CHUNK, SEARCH_CHUNK_ROWS),
+                                       (seq, SEARCH_CHUNK, SEARCH_CHUNK)):
+        for launches in run["log"].evals:
+            add_group_launches(rows_out, launches, per_candidate, folded, table)
+    del model, train_batches, test_batches
     torch.cuda.empty_cache()
 
 
@@ -2692,7 +3170,8 @@ def phase_search_cli(ckpt: Path, tmp: Path):
     launches = read_launches()
     with open(tmp / "random" / "all_results.pickle", "rb") as f:
         explored = pickle.load(f)
-    # 8 candidates, each 5 fine-tune steps and 8 eval chunks of the one test batch.
+    # One group of 8 candidates: 5 fine-tune steps and 8 eval chunks of the one
+    # test batch, each launching every kernel once a block for the group.
     want = {k: v * (5 + SEARCH_TEST_BATCH // SEARCH_CHUNK) for k, v in SEARCH_STEP_LAUNCHES.items()}
 
     with open(PROXY_DIR / "results.pickle", "rb") as f:
@@ -3114,7 +3593,8 @@ def launches_by_batch(cli: str, args: list, launches: dict):
     SN_STEP_LAUNCHES) and eval forwards at its test batch (each
     SN_EVAL_LAUNCHES); the search LAUNCH_STEPS fine-tune steps at its train
     batch and its test batch in eval chunks of SEARCH_CHUNK, each a group
-    step's launches."""
+    step's launches, on one group of its candidates folded into each launch
+    (K x the batch rows)."""
     def flag(name):                    # argparse keeps a flag's last value
         return int(args[len(args) - args[::-1].index(name)])
 
@@ -3135,8 +3615,9 @@ def launches_by_batch(cli: str, args: list, launches: dict):
     calls = LAUNCH_STEPS + chunks
     if any(v % calls for v in launches.values()):
         return None
-    return [(train_b, {k: v // calls * LAUNCH_STEPS for k, v in launches.items()}),
-            (SEARCH_CHUNK, {k: v // calls * chunks for k, v in launches.items()})]
+    group = min(flag("--group_size"), flag("--init_population"))
+    return [(group * train_b, {k: v // calls * LAUNCH_STEPS for k, v in launches.items()}),
+            (group * SEARCH_CHUNK, {k: v // calls * chunks for k, v in launches.items()})]
 
 
 def phase_launchers(tmp: Path, rows_out, hbm) -> None:

@@ -27,6 +27,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.utils._pytree
 
 from nasrec_tpu_torch.config import OpsConfig
 
@@ -199,6 +200,13 @@ class ChoiceMasks:
     def stack(masks: List["ChoiceMasks"]) -> "ChoiceMasks":
         """Host masks of several choices stacked on a new leading axis."""
         return ChoiceMasks(*(np.stack(xs) for xs in zip(*(m.astuple() for m in masks))))
+
+
+# A pytree node, so that torch.func.vmap maps over a stack of choices (the
+# leading axis of every leaf) as jax.vmap maps over the JAX package's masks.
+torch.utils._pytree.register_pytree_node(
+    ChoiceMasks, lambda m: (list(m.astuple()), None), lambda leaves, _: ChoiceMasks(*leaves),
+    serialized_type_name="nasrec_tpu_torch.choices.ChoiceMasks")
 
 
 def prefix_mask(width: int, dims_in_use: int) -> np.ndarray:

@@ -47,6 +47,17 @@
 // second kernel sums the partials in block order.  No float atomics, so equal
 // inputs give equal bits.
 //
+// K candidates in one launch (the counterpart of jax.vmap over the TPU
+// kernel, which adds a grid axis): x [K B, S, 16] and K flat parameter arrays
+// [K, 1696], rows k B ... (k + 1) B - 1 computed with candidate k's
+// parameters.  The grid's second axis is the candidate: a block offsets every
+// batch-indexed array by its candidate's B rows and stages that candidate's
+// parameters, so no block straddles two candidates, and the backward's
+// partials are [K, nblocks, 1696], summed per candidate in block order.  A
+// candidate's rows are partitioned into tiles and blocks as one launch on its
+// B rows alone would partition them.  K = 1 is the one-candidate launch; a
+// group that shares one set of parameters launches K = 1 over all its rows.
+//
 // x, out, dout and dx are f32 or bf16, as in the JAX kernel (its output in
 // x's dtype, f32 inside); o, the statistics, the parameters, their partial
 // sums and gradients stay f32.  The kernels are templates on the element
@@ -346,6 +357,15 @@ body_fwd_kernel(const Act* __restrict__ x, const float* __restrict__ prm,
                 float* __restrict__ stats_out, long long batch, int S, int rpt,
                 int slot_minor, float eps) {
   extern __shared__ __align__(16) float smem[];
+  // Candidate blockIdx.y: its `batch` rows and its parameters.
+  const long long first = blockIdx.y * batch * S;
+  x += first * kE;
+  out += first * kE;
+  if (kTrain) {
+    o_out += first * kE;
+    stats_out += first * kH;
+  }
+  prm += static_cast<long long>(blockIdx.y) * kParams;
   const int T = blockDim.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -501,6 +521,15 @@ body_bwd_kernel(const Act* __restrict__ x, const Act* __restrict__ dout,
                 float* __restrict__ partial, long long batch, int S, int rpt,
                 int slot_minor, float eps) {
   extern __shared__ __align__(16) float smem[];
+  // Candidate blockIdx.y: its `batch` rows, its parameters, its partials.
+  const long long first = blockIdx.y * batch * S;
+  x += first * kE;
+  dout += first * kE;
+  o_in += first * kE;
+  stats += first * kH;
+  dx += first * kE;
+  prm += static_cast<long long>(blockIdx.y) * kParams;
+  partial += static_cast<long long>(blockIdx.y) * gridDim.x * kParams;
   const int T = blockDim.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -714,11 +743,13 @@ body_bwd_kernel(const Act* __restrict__ x, const Act* __restrict__ dout,
   }
 }
 
-// dprm[i] = sum over the blocks' partials, in block order.
+// dprm[k][i] = sum over candidate k's partials, in block order.
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ dprm, int nblocks) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kParams) return;
+  partial += static_cast<long long>(blockIdx.y) * nblocks * kParams;
+  dprm += static_cast<long long>(blockIdx.y) * kParams;
   float acc = 0.0f;
   for (int b = 0; b < nblocks; ++b) acc += partial[static_cast<long long>(b) * kParams + i];
   dprm[i] = acc;
@@ -726,11 +757,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 
 template <typename T>
 int body_fwd(const T* x, const float* prm, T* out, float* o, float* stats, long long batch,
-             int S, int rpt, int threads, int slot_minor, float eps, void* stream) {
-  if (bad_tile(S, rpt, threads, kMaxThreads)) return static_cast<int>(cudaErrorInvalidValue);
+             int cands, int S, int rpt, int threads, int slot_minor, float eps, void* stream) {
+  if (bad_tile(S, rpt, threads, kMaxThreads) || cands < 1 || cands > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const long long tiles = (batch + rpt - 1) / rpt;
-  const int grid = static_cast<int>(tiles < kMaxBlocksFwd ? tiles : kMaxBlocksFwd);
+  const dim3 grid(static_cast<unsigned>(tiles < kMaxBlocksFwd ? tiles : kMaxBlocksFwd), cands);
   const size_t smem = fwd_smem(threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc = cudaFuncSetAttribute(
@@ -749,60 +781,66 @@ int body_fwd(const T* x, const float* prm, T* out, float* o, float* stats, long 
 
 template <typename T>
 int body_bwd(const T* x, const T* dout, const float* o, const float* stats, const float* prm,
-             T* dx, float* partial, float* dprm, long long batch, int S, int rpt, int threads,
-             int nblocks, int slot_minor, float eps, void* stream) {
-  if (bad_tile(S, rpt, threads, kMaxThreads) || nblocks < 1 || batch < 1)
+             T* dx, float* partial, float* dprm, long long batch, int cands, int S, int rpt,
+             int threads, int nblocks, int slot_minor, float eps, void* stream) {
+  if (bad_tile(S, rpt, threads, kMaxThreads) || nblocks < 1 || batch < 1 || cands < 1 ||
+      cands > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_smem(threads);
   const cudaError_t rc = cudaFuncSetAttribute(
       body_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  body_bwd_kernel<T><<<nblocks, threads, smem, st>>>(x, dout, o, stats, prm, dx, partial,
-                                                     batch, S, rpt, slot_minor, eps);
+  body_bwd_kernel<T><<<dim3(nblocks, cands), threads, smem, st>>>(
+      x, dout, o, stats, prm, dx, partial, batch, S, rpt, slot_minor, eps);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return static_cast<int>(launched);
-  reduce_partials_kernel<<<(kParams + 255) / 256, 256, 0, st>>>(partial, dprm, nblocks);
+  reduce_partials_kernel<<<dim3((kParams + 255) / 256, cands), 256, 0, st>>>(partial, dprm,
+                                                                               nblocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // o == nullptr selects the eval forward, which writes neither o nor stats.
-// slot_minor: x is [B, 16, S], not [B, S, 16].
+// slot_minor: x is [B, 16, S], not [B, S, 16].  `cands` candidates: x, out, o
+// and stats hold cands * batch rows, prm cands * 1696 floats.
 extern "C" int nasrec_body_fwd(const float* x, const float* prm, float* out, float* o,
-                               float* stats, long long batch, int S, int rpt,
+                               float* stats, long long batch, int cands, int S, int rpt,
                                int threads, int slot_minor, float eps, void* stream) {
-  return body_fwd(x, prm, out, o, stats, batch, S, rpt, threads, slot_minor, eps, stream);
+  return body_fwd(x, prm, out, o, stats, batch, cands, S, rpt, threads, slot_minor, eps,
+                  stream);
 }
 
 // The same with x and out in bf16; o and stats stay f32.
 extern "C" int nasrec_body_fwd_bf16(const __nv_bfloat16* x, const float* prm,
                                     __nv_bfloat16* out, float* o, float* stats,
-                                    long long batch, int S, int rpt, int threads,
+                                    long long batch, int cands, int S, int rpt, int threads,
                                     int slot_minor, float eps, void* stream) {
-  return body_fwd(x, prm, out, o, stats, batch, S, rpt, threads, slot_minor, eps, stream);
+  return body_fwd(x, prm, out, o, stats, batch, cands, S, rpt, threads, slot_minor, eps,
+                  stream);
 }
 
-// partial is scratch of [nblocks, 1696] floats; the grid is `nblocks` blocks of
-// `threads` threads (two blocks of 128 fit a multiprocessor), and equal
-// (batch, S, rpt, threads, nblocks) give equal bits.  slot_minor: x
-// and dx are [B, 16, S], not [B, S, 16].
+// partial is scratch of [cands, nblocks, 1696] floats and dprm [cands, 1696];
+// the grid is `nblocks` blocks of `threads` threads a candidate (two blocks
+// of 128 fit a multiprocessor), and equal (batch, S, rpt, threads, nblocks)
+// give a candidate equal bits, whatever `cands`.  slot_minor: x and dx are
+// [B, 16, S], not [B, S, 16].
 extern "C" int nasrec_body_bwd(const float* x, const float* dout, const float* o,
                                const float* stats, const float* prm, float* dx,
-                               float* partial, float* dprm, long long batch, int S,
+                               float* partial, float* dprm, long long batch, int cands, int S,
                                int rpt, int threads, int nblocks, int slot_minor, float eps,
                                void* stream) {
-  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, S, rpt, threads, nblocks,
-                  slot_minor, eps, stream);
+  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, cands, S, rpt, threads,
+                  nblocks, slot_minor, eps, stream);
 }
 
 // The same with x, dout and dx in bf16; o, stats, partial and dprm stay f32.
 extern "C" int nasrec_body_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dout,
                                     const float* o, const float* stats, const float* prm,
                                     __nv_bfloat16* dx, float* partial, float* dprm,
-                                    long long batch, int S, int rpt, int threads, int nblocks,
-                                    int slot_minor, float eps, void* stream) {
-  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, S, rpt, threads, nblocks,
-                  slot_minor, eps, stream);
+                                    long long batch, int cands, int S, int rpt, int threads,
+                                    int nblocks, int slot_minor, float eps, void* stream) {
+  return body_bwd(x, dout, o, stats, prm, dx, partial, dprm, batch, cands, S, rpt, threads,
+                  nblocks, slot_minor, eps, stream);
 }

@@ -177,10 +177,7 @@ class FM3D(nn.Module):
         """sparse [B, S*E] slot-major flat -> [B, out_dim]."""
         x = sparse.reshape(sparse.shape[0], in_slots, emb_dim)
         if profiling.counting():
-            flops = fm3d_matmul_flops(sparse.shape[0], in_slots, emb_dim)
-            profiling.report_matmul_flops(flops)
-            if x.requires_grad:
-                x.register_hook(lambda _grad: profiling.report_matmul_flops(flops))
+            x = profiling.reported_flops(x, fm3d_matmul_flops(sparse.shape[0], in_slots, emb_dim))
         ix = torch.square(x.sum(dim=1)) - torch.square(x).sum(dim=1)
         if self.proj is not None:
             ix = self.proj(ix)

@@ -11,6 +11,9 @@ dqkv are float32 or bfloat16 (one dtype for all four); a bf16 kernel computes
 in f32 and rounds each output once, and its plain version does the same:
 the f32 plain version on the widened inputs, rounded once.
 
+Under `torch.func.vmap` over K candidates the kernels launch once at batch
+K B (`ops/kernels/candidates.py`), forward and backward.
+
 The kernels fold the softmax into base-2 exponentials of pre-scaled scores and
 one statistic a head (`csrc/tiny_attn.cuh`); `tiny_head_attention_folded` and
 `tiny_head_attention_folded_bwd` are that arithmetic in plain PyTorch, so that
@@ -25,7 +28,7 @@ from collections import Counter
 import torch
 
 from nasrec_tpu_torch import profiling
-from nasrec_tpu_torch.ops.kernels import build
+from nasrec_tpu_torch.ops.kernels import build, candidates
 
 EMB = 16
 HEADS = 8
@@ -193,14 +196,24 @@ def tiny_head_attention_bwd_kernel(qkv: torch.Tensor, do: torch.Tensor,
 
 class _TinyHeadAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv):
-        ctx.save_for_backward(qkv)
+    def forward(qkv):
         return tiny_head_attention_fwd_kernel(qkv)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, do):
         (qkv,) = ctx.saved_tensors
         return tiny_head_attention_bwd_kernel(qkv, do.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, qkv):
+        # K candidates: one launch at batch K B, forward and backward.
+        k = info.batch_size
+        o = _TinyHeadAttention.apply(candidates.fold(qkv, in_dims[0], k).contiguous())
+        return candidates.unfold(o, k), 0
 
 
 def tiny_head_attention(qkv: torch.Tensor, num_heads: int = HEADS,

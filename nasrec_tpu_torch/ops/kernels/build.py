@@ -60,9 +60,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "transformer_body": {
         "nasrec_body_fwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int,
-                            _c_int, _c_int, _c_float, _c_ptr),
+                            _c_int, _c_int, _c_int, _c_float, _c_ptr),
         "nasrec_body_bwd": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                            _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr),
+                            _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
+                            _c_ptr),
     },
 }
 

@@ -10,7 +10,10 @@ the layout the out-projection consumes.  Row 0 of the triangle's operand is
 x, row 1 + k is slot k.  The backward is a kernel too: it computes dx and dyt
 straight from dz, in the operands' own layouts (see the .cu file).  x, yt, z,
 dz, dx and dyt are float32 or bfloat16 (one dtype for all); a bf16 kernel sums
-in f32 and rounds each output once, and so does the plain version.
+in f32 and rounds each output once, and so does the plain version.  Under
+`torch.func.vmap` over K candidates the kernels launch once at batch K B
+(`ops/kernels/candidates.py`): there are no weights, so the candidates'
+rows are just more rows.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Dict, Tuple
 import torch
 
 from nasrec_tpu_torch import profiling
-from nasrec_tpu_torch.ops.kernels import build
+from nasrec_tpu_torch.ops.kernels import build, candidates
 from nasrec_tpu_torch.ops.kernels.attention import check_activation_dtype, dtype_suffix
 
 EMB = 16
@@ -213,16 +216,33 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 class _DotScoresTril(torch.autograd.Function):
+    # forward gets plain tensors, whether the wrapper or the vmap rule calls
+    # it: it lays the operands out for the kernels and returns them (as
+    # views, which setup_context may save) beside z, so that backward reads
+    # the same copies.
     @staticmethod
-    def forward(ctx, x, yt):
+    def forward(x, yt):
         x, yt = _aligned(x.contiguous()), _aligned(yt.contiguous())
-        ctx.save_for_backward(x, yt)
-        return dot_scores_tril_fwd_kernel(x, yt)
+        return dot_scores_tril_fwd_kernel(x, yt), x.view_as(x), yt.view_as(yt)
 
     @staticmethod
-    def backward(ctx, dz):
+    def setup_context(ctx, inputs, output):
+        _, x, yt = output
+        ctx.mark_non_differentiable(x, yt)
+        ctx.save_for_backward(x, yt)
+
+    @staticmethod
+    def backward(ctx, dz, _dx, _dyt):
         x, yt = ctx.saved_tensors
         return dot_scores_tril_bwd_kernel(x, yt, dz.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, x, yt):
+        # K candidates: one launch at batch K B, forward and backward.
+        k = info.batch_size
+        out = _DotScoresTril.apply(candidates.fold(x, in_dims[0], k),
+                                   candidates.fold(yt, in_dims[1], k))
+        return tuple(candidates.unfold(t, k) for t in out), (0, 0, 0)
 
 
 def dot_scores_tril(x: torch.Tensor, yt: torch.Tensor, impl: str = "auto") -> torch.Tensor:
@@ -233,4 +253,4 @@ def dot_scores_tril(x: torch.Tensor, yt: torch.Tensor, impl: str = "auto") -> to
     through the plain version.  impl='plain' names the plain version."""
     if build.resolve_impl(impl, x) == "plain":
         return dot_scores_tril_plain(x, yt)
-    return _DotScoresTril.apply(x, yt)
+    return _DotScoresTril.apply(x, yt)[0]

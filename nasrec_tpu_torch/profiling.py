@@ -50,6 +50,36 @@ def counting() -> bool:
     return bool(_OPEN_COUNTS)
 
 
+class _ReportedFlops(torch.autograd.Function):
+    """x unchanged; reports `flops` where it runs and again where its
+    backward runs.  Under torch.func.vmap over K candidates it reports K
+    times `flops`, as the kernels' K-candidate launches do."""
+
+    @staticmethod
+    def forward(x, flops):
+        report_matmul_flops(flops)
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.flops = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        report_matmul_flops(ctx.flops)
+        return grad, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, flops):
+        return _ReportedFlops.apply(x, flops * info.batch_size), in_dims[0]
+
+
+def reported_flops(x: torch.Tensor, flops: int) -> torch.Tensor:
+    """x, with `flops` reported to the open counts for its forward and again
+    for its backward, if one runs (see `report_matmul_flops`)."""
+    return _ReportedFlops.apply(x, int(flops))
+
+
 def count_params(params: Any) -> int:
     """Elements of every parameter of a module, or of every tensor in a state
     dict (dead blocks' parameters included, as the JAX package counts them)."""

@@ -786,10 +786,10 @@ class SearchOptions:
     group_size: int = 8
     seed: int = 0
     # "final-only" (default): the K candidates of a group advance together
-    # over the frozen body; "whole" / "layernorm-calibrate" fine-tune one
-    # candidate at a time (ref --finetune_whole_supernet).  batch_finetune is
-    # the JAX package's switch between its two forms of those modes; both
-    # give the same numbers, and the port runs one form.
+    # over the frozen body; "whole" / "layernorm-calibrate" fine-tune more
+    # of the net (ref --finetune_whole_supernet), with batch_finetune (the
+    # default) K full copies as one step a group, else one candidate at a
+    # time, as the JAX package's two forms of those modes do.
     finetune_mode: str = "final-only"
     batch_finetune: bool = True
     # Latency-aware search (criterion="test_loss_penalty_lat"):

@@ -11,7 +11,12 @@ and the dot-product at n = 46 (the supernet's shapes) at batches of 1, 7, 33,
 512 and 4096; the supernet's forward and one masked train step at batch 512,
 kernels against plain versions; the search's eval body forward at batch 512
 and 1024, and two final-only candidates fine-tuned and scored through the
-kernels against the plain versions; device_prefetch's copies on a side stream
+kernels against the plain versions; the transformer body's K-candidate
+kernel (K = 2 to 8, f32 and bf16) bit-equal to one-candidate launches on each
+candidate's rows and held against its plain version (parameter gradients
+1e-5 of their largest magnitude in f32), each kernel's vmap rule launching
+once for a group of 4, and three whole-net candidates as one K-candidate
+step against the plain path and the one-at-a-time form (test losses 1e-4); device_prefetch's copies on a side stream
 against blocking copies over 50 batches; the dense-gradient step's launches (no
 table update) for Adam, SGD and Adagrad with wd > 0, against its plain step;
 and the micro-batched sparse step's single table update against one slice;
@@ -381,8 +386,9 @@ def test_search_shapes_body_eval_forward_matches_plain(dev, batch):
 def test_final_only_evaluator_kernels_match_plain(dev):
     """Two final-only candidates over a seven-block xlarge supernet with
     LayerNorm at batch 512 (eval chunks of 1024): the kernel path launches
-    only the eval body forward and the dot-product forward, 2 x 7 a step, and
-    its scores and fine-tuned finals match the plain path's."""
+    only the eval body forward and the dot-product forward, once a block for
+    the group (at batch 2 x 512, and 2 x 1024 an eval chunk), and its scores
+    and fine-tuned finals match the plain path's."""
     import numpy as np
 
     from nasrec_tpu_torch.config import OPS_CONFIG_LIB
@@ -409,14 +415,153 @@ def test_final_only_evaluator_kernels_match_plain(dev):
     res_k = ev_k(picks, lambda: iter(train), lambda: iter(test))
     after = {**dotprod.LAUNCHES, **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()}}
     launched = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
-    # 4 steps and 2 eval chunks, each 2 candidates x 7 blocks.
-    assert launched == {"fwd_n46": 6 * 14, "body_fwd_s64": 6 * 14}
+    # 4 steps and 2 eval chunks, each 7 blocks for the group.
+    assert launched == {"fwd_n46": 6 * 7, "body_fwd_s64": 6 * 7}
     ev_p = make_candidate_evaluator(cfg, model, impl="plain", **args)
     res_p = ev_p(picks, lambda: iter(train), lambda: iter(test))
     for a, b in zip(res_k, res_p):
         assert abs(a["test_loss"] - b["test_loss"]) <= 1e-4
     assert (ev_k.last_group.weight - ev_p.last_group.weight).abs().max().item() <= 1e-4
     assert (ev_k.last_group.bias - ev_p.last_group.bias).abs().max().item() <= 1e-4
+
+
+def _body_k_case(dev, k, batch, slots, dtype, seed):
+    """K candidates' parameters [K, ...], x [K batch, S, 16] slot-minor, and an
+    output gradient that is zero on the rows where a ReLU input lies within
+    rounding of zero (see _body_case)."""
+    cases = [_body_case(dev, batch, slots, seed + i, "slot_minor") for i in range(k)]
+    x = torch.cat([c[0].transpose(1, 2) for c in cases]).to(dtype).transpose(1, 2)
+    params = [torch.stack(ps) for ps in zip(*(c[1] for c in cases))]
+    dout = torch.cat([c[2] for c in cases]).to(dtype)
+    return x, params, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,batch,slots", [(2, 1, 16), (3, 37, 48), (8, 512, 64), (5, 333, 64)])
+def test_transformer_body_k_kernel_matches_plain_and_single_launches(dev, k, batch, slots,
+                                                                      dtype):
+    """The K-candidate launch gives each candidate's rows and parameter
+    gradients the bits of a one-candidate launch on them (a candidate's rows
+    are partitioned as that launch partitions them), and matches the
+    K-candidate plain version: forward as the one-candidate kernel is held,
+    dx 2e-4, parameter gradients 1e-5 of their largest magnitude in f32 (1e-3
+    in bf16, as test_transformer_body_bf16_kernel_matches_plain)."""
+    tb = transformer_body
+    x, params, dout = _body_k_case(dev, k, batch, slots, dtype, 7 * k + batch)
+    flat = tb.flatten_params(params)
+    assert flat.shape == (k, tb.NUM_PARAM_FLOATS)
+    out_e, _, _ = tb.transformer_body_fwd_kernel(x, flat, save=False)
+    out_t, o, st = tb.transformer_body_fwd_kernel(x, flat, save=True)
+    dx, dflat = tb.transformer_body_bwd_kernel(x, dout, o, st, flat)
+    for i in range(k):
+        rows = slice(i * batch, (i + 1) * batch)
+        oe1, _, _ = tb.transformer_body_fwd_kernel(x[rows], flat[i], save=False)
+        ot1, o1, st1 = tb.transformer_body_fwd_kernel(x[rows], flat[i], save=True)
+        dx1, df1 = tb.transformer_body_bwd_kernel(x[rows], dout[rows].contiguous(), o1, st1,
+                                                  flat[i])
+        assert torch.equal(out_e[rows], oe1) and torch.equal(out_t[rows], ot1)
+        assert torch.equal(o[rows], o1) and torch.equal(st[rows], st1)
+        assert torch.equal(dx[rows], dx1) and torch.equal(dflat[i], df1)
+
+    xg = x.clone().requires_grad_(True)
+    pg = [p.clone().requires_grad_(True) for p in params]
+    out_p = tb.transformer_body_k_plain(xg, pg)
+    grads = torch.autograd.grad(out_p, [xg] + pg, dout)
+    if dtype == torch.bfloat16:
+        _within_bf16_ulp(out_e, out_p.detach(), "out")
+        _within_bf16_ulp(dx, grads[0], "dx")
+        ptol = 1e-3
+    else:
+        torch.testing.assert_close(out_e, out_p.detach(), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dx, grads[0], rtol=2e-4, atol=2e-4)
+        ptol = 1e-5
+    dp = [g.reshape(gp.shape) for g, gp in zip(dflat.split(tb.PARAM_SIZES, dim=1), grads[1:])]
+    for name, gk, gp in zip(tb.PARAM_NAMES, dp, grads[1:]):
+        assert (gk - gp).abs().max().item() <= ptol * max(1.0, gp.abs().max().item()), name
+
+
+def test_vmap_rules_launch_the_k_candidate_forms(dev):
+    """Under torch.func.vmap over K = 4 candidates each kernel launches once
+    for the group, forward and backward (the body's K-candidate form where the
+    parameters vary, its one-candidate form where they are shared), and the
+    results match the plain versions."""
+    tb = transformer_body
+    k, b = 4, 33
+    x, params, dout = _body_k_case(dev, k, b, 64, torch.float32, 3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xd = torch.randn(k, b, 16, device=dev, generator=gen, requires_grad=True)
+    yt = torch.randn(k, b, 16, 45, device=dev, generator=gen, requires_grad=True)
+    qkv = torch.randn(k, b, 64, 48, device=dev, generator=gen, requires_grad=True)
+
+    def run(impl):
+        xs = x.clone().requires_grad_(True)
+        ps = [p.clone().requires_grad_(True) for p in params]
+        body = torch.func.vmap(lambda xi, *p: tb.transformer_body(xi, list(p), impl=impl))(
+            xs.reshape(k, b, 64, 16), *ps)
+        shared = torch.func.vmap(lambda xi: tb.transformer_body(xi, [p[0] for p in ps],
+                                                                impl=impl))(
+            xs.reshape(k, b, 64, 16))
+        z = torch.func.vmap(lambda a, c: dotprod.dot_scores_tril(a, c, impl))(xd, yt)
+        o = torch.func.vmap(lambda q: attention.tiny_head_attention(q, impl=impl))(qkv)
+        outs = [body.reshape(k * b, 64, 16), shared.reshape(k * b, 64, 16), z, o]
+        grads = torch.autograd.grad(outs, [xs, *ps, xd, yt, qkv],
+                                    [dout, dout, torch.ones_like(z), torch.ones_like(o)])
+        return outs, grads
+
+    before = _launches()
+    outs_k, grads_k = run("auto")
+    assert _launched(before) == {"body_fwd_train_s64_k4": 1, "body_bwd_s64_k4": 1,
+                                 "body_fwd_train_s64": 1, "body_bwd_s64": 1,
+                                 "dot_fwd_n46": 1, "dot_bwd_n46": 1, "attn_fwd_s64": 1,
+                                 "attn_bwd_s64": 1}
+    outs_p, grads_p = run("plain")
+    for a, w in zip(outs_k, outs_p):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    for a, w in zip(grads_k, grads_p):
+        assert (a - w).abs().max().item() <= 2e-4 * max(1.0, w.abs().max().item())
+
+
+def test_batched_whole_evaluator_kernels_match_plain(dev):
+    """Three whole-net candidates over a two-block xlarge supernet at batch
+    512 as one K-candidate step: each step launches each kernel once a block
+    for the group and the table update once; scores within 1e-4 of the plain
+    path's and of the one-at-a-time form's."""
+    import numpy as np
+
+    from nasrec_tpu_torch.config import OPS_CONFIG_LIB
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+    from nasrec_tpu_torch.search import Tokenizer, make_candidate_evaluator
+
+    space = OPS_CONFIG_LIB["xlarge"]
+    cfg = SuperNetConfig(space=space, num_blocks=2, num_dense=13, num_sparse=26,
+                         vocab_sizes=(1000,) * 26, use_layernorm=True)
+    model = supernet_init(cfg, seed=0, device=dev)
+    tok = Tokenizer(2, space, seed=4)
+    picks = [tok.generate_random_choice() for _ in range(3)]
+    rng = np.random.RandomState(0)
+
+    def batch(n):
+        return (torch.as_tensor(rng.randn(n, 13).astype(np.float32), device=dev),
+                torch.as_tensor(rng.randint(0, 1000, size=(n, 26)).astype(np.int32), device=dev),
+                torch.as_tensor(rng.randint(0, 2, size=(n, 1)).astype(np.float32), device=dev))
+
+    train, test = [batch(512) for _ in range(3)], [batch(2048)]
+    args = dict(max_train_steps=3, max_eval_steps=1, eval_batch_chunk=1024,
+                finetune_mode="whole")
+    ev_k = make_candidate_evaluator(cfg, model, **args)
+    before = _launches()
+    res_k = ev_k(picks, lambda: iter(train), lambda: iter(test))
+    # 3 steps of 2 blocks, then 2 eval chunks of 2 blocks.
+    assert _launched(before) == {"body_fwd_train_s64_k3": 6, "body_bwd_s64_k3": 6,
+                                 "dot_fwd_n46": 6 + 4, "dot_bwd_n46": 6,
+                                 "body_fwd_s64_k3": 4, "table_update": 3}
+    res_p = make_candidate_evaluator(cfg, model, impl="plain", **args)(
+        picks, lambda: iter(train), lambda: iter(test))
+    res_s = make_candidate_evaluator(cfg, model, batch_candidates=False, **args)(
+        picks, lambda: iter(train), lambda: iter(test))
+    for a, b, c in zip(res_k, res_p, res_s):
+        assert abs(a["test_loss"] - b["test_loss"]) <= 1e-4
+        assert abs(a["test_loss"] - c["test_loss"]) <= 1e-4
 
 
 def test_device_prefetch_matches_a_blocking_copy(dev):
@@ -463,6 +608,7 @@ def _fixed_case(dev, batch, vocab=1000):
 def _launches():
     return {**{"dot_" + k: v for k, v in dotprod.LAUNCHES.items()},
             **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()},
+            **{"attn_" + k: v for k, v in attention.LAUNCHES.items()},
             **table_update.LAUNCHES}
 
 

@@ -2,7 +2,7 @@
 the JAX package, on the CPU at a small size (2 blocks, vocab <= 60, <= 10
 fine-tune steps): the final-only evaluator (K = 3 candidates in one group,
 and the same three one at a time), the whole-net and LayerNorm-calibrate
-modes against the JAX sequential evaluator, the divergence sentinel, the
+modes in both forms against the JAX evaluator's same form, the divergence sentinel, the
 committed JAX supernet checkpoint's logits, `evaluate_choices_from_supernet`
 and random `search_from_supernet` on a checkpoint the JAX package wrote, and
 both search CLIs.
@@ -11,8 +11,9 @@ The same seed-made numpy batches go through both packages.  Tolerance (f32):
 final-only test_loss rel 1e-4, AUROC and accuracy abs 1e-3, and K = 3 against
 three K = 1 runs rel 1e-6 (AUROC and accuracy abs 1e-4: a logit that
 rounds otherwise in a batched product may swap one pair of examples); whole
-and layernorm-calibrate test_loss rel 2e-4, AUROC abs 2e-3 (the JAX
-package's own test of its two forms); logits of the committed checkpoint
+and layernorm-calibrate, each form against the JAX package's same form and
+the port's two forms against each other, test_loss rel 2e-4, AUROC abs 2e-3
+(the JAX package's own test of its two forms); logits of the committed checkpoint
 abs 1e-5; the workloads' losses rel 1e-4.
 """
 
@@ -112,17 +113,24 @@ def test_final_only_evaluator_matches_jax(space):
 
 @pytest.mark.parametrize("mode", ["whole", "layernorm-calibrate"])
 def test_sequential_modes_match_jax(mode):
+    """Both forms of the whole-net and LayerNorm-calibrate modes: the default
+    (one K-candidate step a group) against the JAX package's batched form,
+    batch_candidates=False against its sequential form, and the port's two
+    forms against each other within what the JAX package's own two forms are
+    held to (tests/test_search.py :: test_batched_whole_finetune_matches_sequential)."""
     # Whole-net fine-tunes can amplify rounding: from another seed (11) one
     # candidate's loss moves by 9e-5 between the JAX package's own two forms.
     jcfg, tcfg, params, model, picks = _setup("autoctr", k=2, seed=7)
     (jtr, jte), (ttr, tte) = _streams()
     args = dict(max_train_steps=9, max_eval_steps=2, finetune_mode=mode)
-    want = jax_make_evaluator(jcfg, params, batch_candidates=False, **args)(picks, jtr, jte)
+    want = jax_make_evaluator(jcfg, params, **args)(picks, jtr, jte)
     got = make_candidate_evaluator(tcfg, model, **args)(picks, ttr, tte)
     _assert_results(got, want, 2e-4, 2e-3)
-    again = make_candidate_evaluator(tcfg, model, batch_candidates=False, **args)(
+    want_seq = jax_make_evaluator(jcfg, params, batch_candidates=False, **args)(picks, jtr, jte)
+    got_seq = make_candidate_evaluator(tcfg, model, batch_candidates=False, **args)(
         picks, ttr, tte)
-    assert [r["test_loss"] for r in again] == [r["test_loss"] for r in got]
+    _assert_results(got_seq, want_seq, 2e-4, 2e-3)
+    _assert_results(got_seq, got, 2e-4, 2e-3)
 
 
 def test_diverged_candidate_gets_the_sentinel():
