@@ -46,7 +46,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
               of nn.TransformerEncoderLayer over the stacked weights as its
               library call, and the same in bf16 (held and timed on a line of
               its own: no search runs it, the evaluator being float32 as the
-              JAX package's is); the table update over 8 stacked search-capped
+              JAX package's is); on that line too, the attention core's
+              K-candidate form, vmap of tiny_head_attention over 8 candidates
+              of 512 rows at S = 64, forward and backward (one launch each
+              for the group, bit-equal to 8 one-candidate launches, held
+              against vmap of the plain version, vmap of SDPA its library
+              call); the table update over 8 stacked search-capped
               tables (24,554,536 rows).  And in bf16 (rows
               "_bf16"), at batch 32768: the
               body and the attention core at S = 64, 48 and 16, the
@@ -196,7 +201,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               and all_results.pickle the same choices in order, metrics within
               1e-6 relative; seconds a candidate for each, of the processes'
               wall time and of the search's own time (its "evaluated ...
-              candidates in ...s" lines).  10e: the supernet CLI at phase 5's
+              candidates in ...s" lines); clean_exit: no process printed
+              an abort or an undestroyed process group.  10e: the supernet CLI at phase 5's
               configuration with --ckpt_backend orbax (2 steps) writes
               arrays/ and sidecar.json, which reload into the run's weights bit
               for bit, and a run resumes from the directory at its step.
@@ -1090,6 +1096,88 @@ def check_attention(slots, hbm, gen, rows_out, dtype="float32") -> None:
     torch.cuda.empty_cache()
 
 
+def check_attention_k(hbm, gen, rows_out, batch, k=SEARCH_GROUP, slots=64) -> None:
+    """The attention core's K-candidate form: torch.func.vmap of
+    attention.tiny_head_attention over k candidates of `batch` rows, [k,
+    batch, slots, 48], forward and backward in f32.  Its vmap rule
+    (ops/kernels/candidates.py) must launch each kernel once for the group,
+    at k * batch rows; o and dqkv bit-equal to k one-candidate launches and
+    within the one-candidate tolerances of vmap of the plain version.  Rows
+    "tiny_head_attention_<fwd|bwd>_s<S>_k<k>_b<batch>" time that launch on
+    the folded tensors, beside vmap of the plain version and of
+    F.scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from nasrec_tpu_torch.ops.kernels import attention as at
+
+    dev = torch.device(DEVICE)
+    qkv = torch.randn(k, batch, slots, 48, device=dev, generator=gen)
+    do = torch.randn(k, batch, slots, 16, device=dev, generator=gen)
+    before = dict(at.LAUNCHES)
+    qv = qkv.clone().requires_grad_(True)
+    o_v = torch.func.vmap(at.tiny_head_attention)(qv)
+    (dq_v,) = torch.autograd.grad(o_v, qv, do)
+    torch.cuda.synchronize()
+    group_launches = {key: n - before.get(key, 0) for key, n in at.LAUNCHES.items()
+                      if n != before.get(key, 0)}
+    one_launch = group_launches == {f"fwd_s{slots}": 1, f"bwd_s{slots}": 1}
+    same_singles = all(
+        torch.equal(o_v[i], at.tiny_head_attention_fwd_kernel(qkv[i]))
+        and torch.equal(dq_v[i], at.tiny_head_attention_bwd_kernel(qkv[i], do[i]))
+        for i in range(k))
+    qg = qkv.clone().requires_grad_(True)
+    o_g = torch.func.vmap(at.tiny_head_attention_plain)(qg)
+    (dq_p,) = torch.autograd.grad(o_g, qg, do, retain_graph=True)
+    fe, f_ok = agree(o_v, o_g.detach(), KERNEL_REL_TOL)
+    be, b_ok = agree(dq_v, dq_p, GRAD_REL_TOL)
+    ok = one_launch and same_singles and f_ok and b_ok
+    emit({"phase": "kernels", "kernel": "tiny_head_attention", "form": f"{k} candidates",
+          "dtype": "float32", "slots": slots, "batch_per_candidate": batch,
+          "launches_of_the_vmap_rule": group_launches,
+          "equal_bits_to_one_candidate_launches": same_singles,
+          "o_max_abs_err": fe, "dqkv_max_abs_err": be, "ok": ok})
+    if not ok:
+        raise SystemExit(f"the {k}-candidate tiny_head_attention S={slots} did not launch "
+                         "once a group, or disagrees with one-candidate launches or with "
+                         "its plain version")
+    del o_v, dq_v, qv
+
+    def sdpa(t):
+        q, kk, v = (u.reshape(batch, slots, 8, 2).transpose(1, 2) for u in t.split(16, dim=-1))
+        return F.scaled_dot_product_attention(q, kk, v).transpose(1, 2).reshape(batch, slots, 16)
+
+    ql = qkv.clone().requires_grad_(True)
+    try:
+        o_l = torch.func.vmap(sdpa)(ql)
+        lib_err, lib_ok = within(o_l.detach(), o_g.detach(), 10 * KERNEL_REL_TOL)
+        note = None
+    except RuntimeError as exc:
+        o_l, lib_err, lib_ok, note = None, None, False, str(exc)[:200]
+    emit({"phase": "kernels", "library": "vmap(F.scaled_dot_product_attention)",
+          "dtype": "float32", "form": f"{k} candidates", "slots": slots,
+          "batch_per_candidate": batch, "max_abs_err_vs_plain": lib_err, "agrees": lib_ok,
+          "error": note})
+    qf, dof = qkv.reshape(k * batch, slots, 48), do.reshape(k * batch, slots, 16)
+    pos = k * batch * slots
+    f_fwd, f_bwd = attention_flops(slots)
+    for kind, kern, plain, lib_fn, nfloats, flops, exps, err in (
+        ("fwd", lambda: at.tiny_head_attention_fwd_kernel(qf),
+         lambda: no_grad_call(torch.func.vmap(at.tiny_head_attention_plain), qkv),
+         lambda: no_grad_call(torch.func.vmap(sdpa), qkv), 48 + 16, f_fwd, 8 * slots, fe),
+        ("bwd", lambda: at.tiny_head_attention_bwd_kernel(qf, dof),
+         lambda: torch.autograd.grad(o_g, qg, do, retain_graph=True),
+         lambda: torch.autograd.grad(o_l, ql, do, retain_graph=True),
+         48 + 16 + 48, f_fwd + f_bwd, 16 * slots, be),
+    ):
+        name = f"tiny_head_attention_{kind}_s{slots}_k{k}_b{batch}"
+        rows_out[name] = kernel_row(name, ATTN_SOURCE, ATTN_REPLACES, err, kern, plain,
+                                    lib_fn if lib_ok else None, nfloats * 4 * pos,
+                                    flops * pos, hbm, heavy=True, exps=exps * pos)
+    del o_g, o_l, qg, ql
+    torch.cuda.empty_cache()
+
+
 def check_fused_against_unfused(gen) -> None:
     """The transformer node of the xlarge plan's block 0 (26 -> 64 slots):
     its fused form (the body kernels) against its unfused form (PyTorch ops
@@ -1355,11 +1443,14 @@ def phase_kernels(hbm):
     check_transformer_body(64, hbm, gen, rows_out, SEARCH_CHUNK_ROWS, sc, ("fwd",), True)
     check_transformer_body_k(hbm, gen, rows_out, SN_BATCH, ("fwd_train", "bwd"))
     check_transformer_body_k(hbm, gen, rows_out, SEARCH_CHUNK, ("fwd",))
-    # The K-candidate body in bf16: no search runs it (the evaluator is
-    # float32), so it is held and timed here and kept off the kernels line.
+    # The K-candidate body in bf16 (the evaluator is float32) and attention's
+    # K-candidate form (the search's transformer nodes run fused): no search
+    # runs them, so they are held and timed here and kept off the kernels
+    # line.
     off_path = {}
     check_transformer_body_k(hbm, gen, off_path, SN_BATCH, ("fwd_train", "bwd"), "bfloat16")
     check_transformer_body_k(hbm, gen, off_path, SEARCH_CHUNK, ("fwd",), "bfloat16")
+    check_attention_k(hbm, gen, off_path, SN_BATCH)
     emit({"phase": "kernels", "held_off_the_main_paths": list(off_path.values())})
     check_dot_scores(46, hbm, gen, rows_out, SN_BATCH, tr)
     check_dot_scores(46, hbm, gen, rows_out, SN_EVAL_BATCH, ev)
@@ -3483,6 +3574,8 @@ def phase_fanout(ckpt: Path, tmp: Path) -> None:
            "--test_batch_size", str(SEARCH_TEST_BATCH)]
     single_s, single_out = fanout.run_single(cli, str(tmp / "fanout1"), DEVICE, 600)
     pair_s, pair_out = fanout.run_pair(cli, str(tmp / "fanout2"), DEVICE, 600)
+    # Every process took its groups down: no abort text, no undestroyed group.
+    clean_exit = not any(fanout.exit_faults(o) for o in single_out + pair_out)
     # The search's own seconds: one process's, and the longer of the pair's
     # two (each evaluates its own group at the same time as the other).
     search_s = [fanout.search_seconds(single_out[0]),
@@ -3498,10 +3591,10 @@ def phase_fanout(ckpt: Path, tmp: Path) -> None:
                                          pair_s / FANOUT_CANDIDATES],
           "search_seconds": search_s,
           "search_seconds_per_candidate": [x / FANOUT_CANDIDATES for x in search_s],
-          "ok": ok and all(x > 0 for x in search_s)})
-    if not ok:
-        raise SystemExit("the two-process search differs from one process "
-                         "(see the 'fanout' line)")
+          "clean_exit": clean_exit, "ok": ok and clean_exit and all(x > 0 for x in search_s)})
+    if not (ok and clean_exit):
+        raise SystemExit("the two-process search differs from one process, or a process "
+                         "left a process group up (see the 'fanout' line)")
 
 
 def phase_orbax(tmp: Path) -> None:

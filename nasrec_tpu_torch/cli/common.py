@@ -16,11 +16,13 @@ the CPU), xla (the plain versions), pallas (the kernels; raises on the CPU).
 (parallel/, train/checkpoint.py).  The multi-process flags
 (`add_distributed_args`) bring up torch.distributed before anything else:
 NCCL with --device cuda, gloo with --device cpu; every process runs the same
-command with its own --process_id."""
+command with its own --process_id, and tears its process groups down before
+it returns (`distributed_run`)."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from nasrec_tpu_torch.config import SEARCH_MAX_NUM_EMBEDDINGS
 from nasrec_tpu_torch.workloads import DataOptions, TrainOptions
@@ -56,6 +58,24 @@ def maybe_initialize_distributed(args) -> None:
         initialize(coordinator_address=args.coordinator_address, num_processes=num,
                    process_id=args.process_id if args.process_id >= 0 else None,
                    device=getattr(args, "device", "cuda"))
+
+
+@contextlib.contextmanager
+def distributed_run(args):
+    """A CLI's work between bring-up (`maybe_initialize_distributed`) and
+    teardown (`distributed.shutdown`), so that no process exits with a
+    process group up: after work that returned, every rank first waits for
+    the others; after work that raised, this rank tears its groups down at
+    once and the exception goes on (the others may never reach a barrier)."""
+    from nasrec_tpu_torch.parallel import distributed
+
+    try:
+        maybe_initialize_distributed(args)
+        yield
+    except BaseException:
+        distributed.shutdown()
+        raise
+    distributed.shutdown(barrier=True)
 
 
 def add_data_args(p: argparse.ArgumentParser, train_bs=256, test_bs=16368):

@@ -37,7 +37,7 @@ from nasrec_tpu_torch.cli.common import (
     add_data_args,
     add_distributed_args,
     data_options,
-    maybe_initialize_distributed,
+    distributed_run,
 )
 
 
@@ -92,7 +92,11 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    maybe_initialize_distributed(args)
+    with distributed_run(args):    # up before any other work, down before return
+        return _run(args)
+
+
+def _run(args):
     from nasrec_tpu_torch.workloads import (
         SearchOptions,
         evaluate_choices_from_supernet,

@@ -29,7 +29,7 @@ from nasrec_tpu_torch.cli.common import (
     add_distributed_args,
     add_train_args,
     data_options,
-    maybe_initialize_distributed,
+    distributed_run,
     train_options,
 )
 from nasrec_tpu_torch.configs import get_best_arch
@@ -56,7 +56,11 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    maybe_initialize_distributed(args)   # before any other work
+    with distributed_run(args):    # up before any other work, down before return
+        return _run(args)
+
+
+def _run(args):
     from nasrec_tpu_torch.workloads import SupernetOptions, train_fixed_subnet, train_supernet
 
     if args.net == "supernet":

@@ -6,7 +6,9 @@ sharded checkpoints (port of `nasrec_tpu/parallel/distributed.py`).
     is the same bring-up for any world size, one included.  Every process
     also gets a gloo group over all ranks (`host_group()`), which carries
     host (numpy) exchanges such as the search's fan-out even when training
-    runs NCCL: it lets several processes share one card.
+    runs NCCL: it lets several processes share one card.  `shutdown()` takes
+    every group down again, joining gloo's threads before the interpreter
+    finalizes (the CLIs call it through `cli.common.distributed_run`).
   - A process on a machine with several cards uses card `rank % count`
     (`device.resolve_device`); on a one-card machine every rank uses card 0.
   - `fetch_array` / `fetch_pytree` all-gather a tensor split along its first
@@ -84,12 +86,32 @@ def initialize(coordinator_address: Optional[str] = None,
     start(f"tcp://{coordinator_address}", num_processes, process_id, device)
 
 
-def shutdown() -> None:
-    """Tear down the process groups (a no-op when none is up)."""
+def shutdown(barrier: bool = False) -> None:
+    """Tear down the process groups (a no-op when none is up).
+
+    barrier=True first waits for every rank over the host group, so that
+    rank 0, which serves the rendezvous store, takes it down only after every
+    rank is done with it: the end of a run that succeeded.  A rank whose work
+    raised passes False and does not wait, since the others may never come.
+
+    A gloo group's worker threads drop each finished collective's tensors a
+    moment after the caller sees it complete.  If that last drop comes after
+    the interpreter has begun to finalize, the thread cannot take the GIL,
+    is unwound by `pthread_exit` through a noexcept frame and the process
+    dies of std::terminate ("terminate called without an active exception",
+    SIGABRT).  A group's threads are joined when its last reference goes,
+    which `destroy_process_group` drops here, so a caller must not keep a
+    group (a Mesh) past this call."""
     global _HOST_GROUP
-    if dist.is_initialized():
+    group, _HOST_GROUP = _HOST_GROUP, None
+    if not dist.is_initialized():
+        return
+    try:
+        if barrier:
+            dist.barrier(group=group)
+    finally:
+        del group       # a traceback of the barrier would keep this frame alive
         dist.destroy_process_group()
-    _HOST_GROUP = None
 
 
 def host_info() -> Tuple[int, int]:

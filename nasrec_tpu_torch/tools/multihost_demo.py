@@ -9,7 +9,9 @@ without the mesh, to 1e-4 of the loss.  This runs the whole multi-process
 stack across real process boundaries: torch.distributed bring-up from the CLI
 flags, the mesh's process groups, per-rank batches
 (workloads._globalize_iterators), the sharded lookup and the sparse mesh step
-with its all-gathers, the gathered metrics and the end-of-run table gather.
+with its all-gathers, the gathered metrics, the end-of-run table gather and
+the teardown: a process that exits non-zero or prints an EXIT_FAULTS text
+fails the demo.
 
 Run (spawns all the processes itself; the three run at once):
   python -m nasrec_tpu_torch.tools.multihost_demo --device cpu
@@ -37,6 +39,9 @@ CLI_ARGS = [
     "--learning_rate", "0.05",
 ]
 REL_TOL = 1e-4
+# What a process prints when it ends with a process group up: gloo's
+# std::terminate at exit, or PyTorch's warning about a group it destructs.
+EXIT_FAULTS = ("terminate called", "has NOT been destroyed")
 
 
 def free_port() -> int:
@@ -54,6 +59,11 @@ def child_env(device: str) -> dict:
     if device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
     return env
+
+
+def exit_faults(out: str) -> list:
+    """The EXIT_FAULTS texts in a process's output."""
+    return [t for t in EXIT_FAULTS if t in out]
 
 
 def losses(out: str):
@@ -85,7 +95,8 @@ def main(argv=None):
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
-    bad = {k: p.returncode for k, p in procs.items() if p.returncode != 0}
+    bad = {k: (p.returncode, exit_faults(outs[k])) for k, p in procs.items()
+           if p.returncode != 0 or exit_faults(outs[k])}
     if bad:
         detail = "\n".join(f"--- {k} ---\n{outs[k]}" for k in outs)
         raise SystemExit(f"runs failed {bad}:\n{detail}")

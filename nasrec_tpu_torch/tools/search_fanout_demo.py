@@ -9,7 +9,8 @@ same order (every sampling, mutation, dedup and aging decision), metrics
 within 1e-5 relative.  Candidate groups go round-robin to the ranks
 (search/evolution.py :: Searcher._evaluate_distributed) and the metrics come
 back over gloo, so the two processes may share one card (--device cuda, the
-default).
+default).  A process that exits non-zero or prints an EXIT_FAULTS text
+(tools/multihost_demo.py) fails the demo.
 
 Run (spawns the processes itself):
   python -m nasrec_tpu_torch.tools.search_fanout_demo                 # on the card
@@ -29,7 +30,7 @@ import sys
 import tempfile
 import time
 
-from nasrec_tpu_torch.tools.multihost_demo import child_env, free_port
+from nasrec_tpu_torch.tools.multihost_demo import child_env, exit_faults, free_port
 
 CLI = [
     "-m", "nasrec_tpu_torch.cli.eval_subnet_from_supernet",
@@ -57,7 +58,7 @@ def run_single(cli, out_dir: str, device: str, timeout: float):
     proc = subprocess.run([sys.executable] + cli + ["--device", device, "--logging_dir", out_dir],
                           env=child_env(device), capture_output=True, text=True,
                           timeout=timeout)
-    if proc.returncode != 0:
+    if proc.returncode != 0 or exit_faults(proc.stdout + proc.stderr):
         raise SystemExit(f"single run failed:\n{proc.stdout}\n{proc.stderr}")
     return time.perf_counter() - t0, [proc.stdout]
 
@@ -78,7 +79,7 @@ def run_pair(cli, out_dir: str, device: str, timeout: float):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    if any(p.returncode != 0 for p in procs):
+    if any(p.returncode != 0 or exit_faults(o) for p, o in zip(procs, outs)):
         raise SystemExit("fan-out pair failed:\n" + "\n---\n".join(outs))
     return time.perf_counter() - t0, outs
 

@@ -243,7 +243,8 @@ def _rank_main(argv):
     if args.rank == 0:
         with open(workdir / "rank0.pkl", "wb") as f:
             pickle.dump(out, f)
-    distributed.shutdown()
+    del mesh
+    distributed.shutdown(barrier=True)
 
 
 # ---------------------------------------------------------------------------
