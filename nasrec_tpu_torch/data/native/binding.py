@@ -24,6 +24,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from nasrec_tpu_torch import tracing
+
 _SRC = Path(__file__).resolve().parent / "fast_parse.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
@@ -132,6 +134,14 @@ def parse_ctr_buffer(
     return dense, cats, labels
 
 
+def _parse_counted(buf: bytes, num_dense: int, num_sparse: int, vocab_sizes, zero_dense):
+    """parse_ctr_buffer inside the span `data.parse`, its rows counted there."""
+    with tracing.span("data.parse"):
+        parsed = parse_ctr_buffer(buf, num_dense, num_sparse, vocab_sizes, zero_dense)
+        tracing.count("data.rows_parsed", len(parsed[2]))
+    return parsed
+
+
 def _take(pend: list, rows: int):
     """Pop the first `rows` rows off a queue of parsed (dense, cat, label)
     chunks, as one batch."""
@@ -168,25 +178,27 @@ def read_batches_native(
     with open(path, "rb") as f:
         tail = b""
         while True:
-            chunk = f.read(chunk_bytes)
-            if not chunk:
-                break
-            chunk = tail + chunk
-            nl = chunk.rfind(b"\n")
-            if nl < 0:
-                tail = chunk
-                continue
-            tail = chunk[nl + 1:]
-            parsed = parse_ctr_buffer(chunk[: nl + 1], num_dense, num_sparse,
-                                      vocab_sizes, zero_dense)
+            # The read, the last chunk's tail joined, the cut at the last newline.
+            with tracing.span("data.read"):
+                chunk = f.read(chunk_bytes)
+                if not chunk:
+                    break
+                chunk = tail + chunk
+                nl = chunk.rfind(b"\n")
+                if nl < 0:
+                    tail = chunk
+                    continue
+                tail = chunk[nl + 1:]
+                lines = chunk[: nl + 1]
+            parsed = _parse_counted(lines, num_dense, num_sparse, vocab_sizes, zero_dense)
             pend.append(parsed)
             pend_rows += len(parsed[2])
             while pend_rows >= batch_size:
                 pend_rows -= batch_size
                 yield _take(pend, batch_size)
         if tail:
-            parsed = parse_ctr_buffer(tail + b"\n", num_dense, num_sparse,
-                                      vocab_sizes, zero_dense)
+            parsed = _parse_counted(tail + b"\n", num_dense, num_sparse, vocab_sizes,
+                                    zero_dense)
             pend.append(parsed)
             pend_rows += len(parsed[2])
     while pend_rows > 0:

@@ -29,6 +29,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from nasrec_tpu_torch import tracing
 from nasrec_tpu_torch.data.transforms import get_transform
 
 _fallback_said = threading.Event()
@@ -155,7 +156,8 @@ def prefetch(it: Iterable, depth: int = 4) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("data.queue_wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, _Failed):
@@ -187,25 +189,29 @@ def device_prefetch(it: Iterable, device: str | torch.device, depth: int = 2) ->
     it = iter(it)
 
     def send(batch):
-        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in batch]
-        with torch.cuda.stream(side):
+        with tracing.span("data.pin"):
+            host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in batch]
+        with tracing.span("data.h2d"), torch.cuda.stream(side):
             out = tuple(h.to(device, non_blocking=True) for h in host)
             ready = torch.cuda.Event()
             ready.record(side)
         return out, ready
 
-    for batch in it:
-        ahead.append(send(batch))
-        if len(ahead) == depth:
-            break
-    while ahead:
-        out, ready = ahead.popleft()
-        nxt = next(it, None)
-        if nxt is not None:
-            ahead.append(send(nxt))
-        consumer.wait_event(ready)
-        for t in out:
-            t.record_stream(consumer)
+    while True:
+        # The batch handed out and the `depth` behind it are sent before the
+        # consumer's stream waits on the first.
+        with tracing.span("data.next"):
+            while len(ahead) <= depth:
+                nxt = next(it, None)
+                if nxt is None:
+                    break
+                ahead.append(send(nxt))
+            if not ahead:
+                return
+            out, ready = ahead.popleft()
+            consumer.wait_event(ready)
+            for t in out:
+                t.record_stream(consumer)
         yield out
 
 

@@ -63,6 +63,7 @@ from typing import Callable, Dict, Iterable, List, Sequence
 import numpy as np
 import torch
 
+from nasrec_tpu_torch import tracing
 from nasrec_tpu_torch.choices import Choice, ChoiceMasks, choice_to_masks
 from nasrec_tpu_torch.models.supernet import SuperNet, SuperNetConfig
 from nasrec_tpu_torch.train.loop import TABLE, freeze_mask
@@ -308,18 +309,19 @@ class SequentialCandidate:
 def _finetune(step: Callable, train_iter_fn: Callable[[], Iterable], max_train_steps: int,
               log_fn: Callable[[str], None]) -> None:
     """max_train_steps steps on the shared stream, restarted when it ends."""
-    step_idx = 0
-    train_iter = iter(train_iter_fn())
-    while step_idx < max_train_steps:
-        try:
-            dense, cat, y = next(train_iter)
-        except StopIteration:
-            train_iter = iter(train_iter_fn())
-            continue
-        losses = step(dense, cat, y, step_idx)
-        step_idx += 1
-        if step_idx % 100 == 0:
-            log_fn(f"finetune step {step_idx}: loss {float(losses.mean()):.5f}")
+    with tracing.span("search.finetune"):
+        step_idx = 0
+        train_iter = iter(train_iter_fn())
+        while step_idx < max_train_steps:
+            try:
+                dense, cat, y = next(train_iter)
+            except StopIteration:
+                train_iter = iter(train_iter_fn())
+                continue
+            losses = step(dense, cat, y, step_idx)
+            step_idx += 1
+            if step_idx % 100 == 0:
+                log_fn(f"finetune step {step_idx}: loss {float(losses.mean()):.5f}")
 
 
 def _eval_logits(forward: Callable, test_iter_fn: Callable[[], Iterable], max_eval_steps: int,
@@ -327,31 +329,35 @@ def _eval_logits(forward: Callable, test_iter_fn: Callable[[], Iterable], max_ev
     """forward(dense, cat) -> [K, n] over the test stream in chunks ->
     (logits [K, N], labels [N]) on the host."""
     all_logits, all_labels = [], []
-    for i, (dense, cat, y) in enumerate(test_iter_fn()):
-        if max_eval_steps != -1 and i >= max_eval_steps:
-            break
-        all_logits.extend(forward(dense[s:s + chunk], cat[s:s + chunk])
-                          for s in range(0, len(y), chunk))
-        all_labels.append(y.reshape(-1))
+    with tracing.span("search.eval"):
+        for i, (dense, cat, y) in enumerate(test_iter_fn()):
+            if max_eval_steps != -1 and i >= max_eval_steps:
+                break
+            all_logits.extend(forward(dense[s:s + chunk], cat[s:s + chunk])
+                              for s in range(0, len(y), chunk))
+            all_labels.append(y.reshape(-1))
     if not all_logits:
         raise ValueError("eval iterator produced no batches — is test_batch_size larger "
                          "than the eval split (batches are dropped when short)?")
-    return (torch.cat(all_logits, dim=1).float().cpu().numpy(),
-            torch.cat(all_labels).float().cpu().numpy())
+    with tracing.span("search.fetch"):
+        return (torch.cat(all_logits, dim=1).float().cpu().numpy(),
+                torch.cat(all_labels).float().cpu().numpy())
 
 
 def _score(choices: Sequence[Choice], logits: np.ndarray, labels: np.ndarray) -> List[Dict]:
-    probs = stable_sigmoid(logits)
-    eps = 1e-12
-    results = []
-    for i, choice in enumerate(choices):
-        p = probs[i]
-        logloss = float(-(labels * np.log(p + eps) + (1 - labels) * np.log(1 - p + eps)).mean())
-        if not np.isfinite(logloss):
-            results.append({"choice": choice, **SENTINEL})
-            continue
-        results.append({"choice": choice, "test_acc": binary_accuracy(p, labels),
-                        "test_auroc": auc_exact(labels, p), "test_loss": logloss})
+    with tracing.span("search.score"):
+        probs = stable_sigmoid(logits)
+        eps = 1e-12
+        results = []
+        for i, choice in enumerate(choices):
+            p = probs[i]
+            logloss = float(-(labels * np.log(p + eps)
+                              + (1 - labels) * np.log(1 - p + eps)).mean())
+            if not np.isfinite(logloss):
+                results.append({"choice": choice, **SENTINEL})
+                continue
+            results.append({"choice": choice, "test_acc": binary_accuracy(p, labels),
+                            "test_auroc": auc_exact(labels, p), "test_loss": logloss})
     return results
 
 
@@ -397,6 +403,10 @@ class CandidateEvaluator:
     def __call__(self, choices: Sequence[Choice], train_iter_fn: Callable[[], Iterable],
                  test_iter_fn: Callable[[], Iterable],
                  log_fn: Callable[[str], None] = lambda s: None) -> List[Dict]:
+        with tracing.span("search.group"):
+            return self._evaluate(choices, train_iter_fn, test_iter_fn, log_fn)
+
+    def _evaluate(self, choices, train_iter_fn, test_iter_fn, log_fn) -> List[Dict]:
         if self.sequential is None:
             self.last_group = None          # a whole-net group's copies go before the next's
             group = self.group(choices)

@@ -273,7 +273,11 @@ def train_and_test_one_epoch(
     }
     best_params = None
     best_test_loss = float("inf")
-    t_start = time.time()
+    # The rate counts the training steps' time only (perf_counter), from the
+    # loop's start to each displayed step's end: the display's host work and
+    # the evals are taken out.
+    train_s = 0.0
+    t_start = time.perf_counter()
     examples = 0
     batch_num = -1
 
@@ -286,7 +290,8 @@ def train_and_test_one_epoch(
 
         is_last = batch_num == max_train_steps - 1
         if batch_num % display_interval == 0 or is_last:
-            loss = float(metrics["loss"])
+            loss = float(metrics["loss"])             # waits for the step
+            train_s += time.perf_counter() - t_start
             if not np.isfinite(loss):
                 log_fn("Loss NaN. Exiting...")
                 logs["test_loss"].append(999.99)
@@ -298,12 +303,11 @@ def train_and_test_one_epoch(
             probs = stable_sigmoid(logits)
             train_auroc = auc_exact(labels, probs)
             train_acc = binary_accuracy(probs, labels)
-            dt = time.time() - t_start
             log_fn(
                 f"epoch {epoch} step {batch_num} loss {loss:.6f} "
                 f"l2 {float(metrics['l2']):.6f} lr {float(metrics['lr']):.6f} "
                 f"acc {train_acc:.4f} auroc {train_auroc:.4f} "
-                f"({examples / max(dt, 1e-9):.0f} ex/s)"
+                f"({examples / max(train_s, 1e-9):.0f} ex/s)"
             )
             logs["train_loss"].append(loss)
             logs["train_AUROC"].append(train_auroc)
@@ -316,9 +320,12 @@ def train_and_test_one_epoch(
                 metrics_writer.scalar(f"Acc/train/epoch{epoch}", train_acc, batch_num)
                 metrics_writer.scalar(f"AUROC/train/epoch{epoch}", train_auroc, batch_num)
                 metrics_writer.scalar(f"lr/epoch{epoch}", float(metrics["lr"]), batch_num)
+            t_start = time.perf_counter()
 
         if (batch_num % test_interval == 0 or is_last) and (
                 not test_only_at_last_step or is_last):
+            float(metrics["loss"])                     # waits for the steps queued
+            train_s += time.perf_counter() - t_start
             t0 = time.time()
             acc, auroc, tloss = evaluate_one_epoch(
                 eval_step, state.model, make_test_iter(), masks=eval_masks,
@@ -336,6 +343,7 @@ def train_and_test_one_epoch(
             if keep_best and tloss < best_test_loss:
                 best_test_loss = tloss
                 best_params = snapshot_params(state.model)
+            t_start = time.perf_counter()
 
         if max_train_steps != -1 and batch_num >= max_train_steps - 1:
             return state, logs, best_params

@@ -27,6 +27,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
+from nasrec_tpu_torch import tracing
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
 from nasrec_tpu_torch.parallel.embedding import sharded_lookup
 from nasrec_tpu_torch.parallel.mesh import Mesh
@@ -156,6 +157,10 @@ def make_sparse_embedding_train_step(
     mesh = mesh or Mesh(1, 1)
 
     def step(state: TrainState, dense, cat, y, masks=None):
+        with tracing.span("train.step"):
+            return _step(state, dense, cat, y, masks)
+
+    def _step(state: TrainState, dense, cat, y, masks):
         masks = resolve_masks(masks, has_masks)
         model = state.model
         table = model.embedding.table
@@ -183,50 +188,57 @@ def make_sparse_embedding_train_step(
                                         materialize_grads=True)
             return bce.detach(), l2.detach(), logits.detach(), grads
 
-        slices = [forward_backward(slice(i * rows_per, (i + 1) * rows_per))
-                  for i in range(microbatch)]
+        with tracing.span("train.forward_backward"):
+            slices = [forward_backward(slice(i * rows_per, (i + 1) * rows_per))
+                      for i in range(microbatch)]
+            with torch.no_grad():
+                n_rest = len(rest)
+                if microbatch == 1:
+                    bce, l2, logits, grads = slices[0]
+                    g_rest, d_stem = grads[:n_rest], grads[n_rest:]
+                else:
+                    inv_m = 1.0 / microbatch
+                    bce = torch.stack([x[0] for x in slices]).mean()
+                    l2 = slices[0][1]
+                    logits = torch.cat([x[2] for x in slices])
+                    g_rest = [g.clone() for g in slices[0][3][:n_rest]]
+                    for *_, more in slices[1:]:
+                        for acc, g in zip(g_rest, more[:n_rest]):
+                            acc.add_(g)
+                    g_rest = [g * inv_m for g in g_rest]
+                    # Slices stack in the full batch's row order, as idx does.
+                    d_stem = ([torch.cat([x[3][n_rest] for x in slices]) * inv_m]
+                              if train_table else [])
+                mesh.mean_over_data_(g_rest)
         with torch.no_grad():
-            n_rest = len(rest)
-            if microbatch == 1:
-                bce, l2, logits, grads = slices[0]
-                g_rest, d_stem = grads[:n_rest], grads[n_rest:]
-            else:
-                inv_m = 1.0 / microbatch
-                bce = torch.stack([x[0] for x in slices]).mean()
-                l2 = slices[0][1]
-                logits = torch.cat([x[2] for x in slices])
-                g_rest = [g.clone() for g in slices[0][3][:n_rest]]
-                for *_, more in slices[1:]:
-                    for acc, g in zip(g_rest, more[:n_rest]):
-                        acc.add_(g)
-                g_rest = [g * inv_m for g in g_rest]
-                # Slices stack in the full batch's row order, as idx does.
-                d_stem = [torch.cat([x[3][n_rest] for x in slices]) * inv_m] if train_table else []
-            mesh.mean_over_data_(g_rest)
             if train_table:
-                d_all = d_stem[0]
-                if mesh.data > 1:
-                    d_all = mesh.gather_over_data(d_all / mesh.data)
-                rows, seg, _ = rowwise_segment_sum_slotwise(
-                    mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]))
+                with tracing.span("train.segment_sum", device=True):
+                    d_all = d_stem[0]
+                    if mesh.data > 1:
+                        d_all = mesh.gather_over_data(d_all / mesh.data)
+                    rows, seg, _ = rowwise_segment_sum_slotwise(
+                        mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]))
             if grad_clip is not None:
-                sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
-                if train_table:
-                    # sum(seg^2) is the dense table gradient's squared norm:
-                    # seg holds each vocab row's summed gradient once.
-                    sq = sq + torch.sum(torch.square(seg))
-                scale = global_norm_scale(sq, grad_clip)
-                g_rest = [g * scale for g in g_rest]
-                if train_table:
-                    seg = seg * scale
-            lr = float(lr_schedule(state.step))
-            optimizer.update_(state.opt_state, [n for n, _ in rest],
-                              [p for _, p in rest], g_rest, lr)
+                with tracing.span("train.clip"):
+                    sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
+                    if train_table:
+                        # sum(seg^2) is the dense table gradient's squared norm:
+                        # seg holds each vocab row's summed gradient once.
+                        sq = sq + torch.sum(torch.square(seg))
+                    scale = global_norm_scale(sq, grad_clip)
+                    g_rest = [g * scale for g in g_rest]
+                    if train_table:
+                        seg = seg * scale
+            with tracing.span("train.dense_update"):
+                lr = float(lr_schedule(state.step))
+                optimizer.update_(state.opt_state, [n for n, _ in rest],
+                                  [p for _, p in rest], g_rest, lr)
             if train_table:
-                sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
-                                            rows, seg, lr, adagrad_eps,
-                                            row_offset=mesh.model_index * table.shape[0],
-                                            impl=table_impl)
+                with tracing.span("train.table_update"):
+                    sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
+                                                rows, seg, lr, adagrad_eps,
+                                                row_offset=mesh.model_index * table.shape[0],
+                                                impl=table_impl)
             if mesh.data > 1:
                 bce = bce.clone()
                 mesh.mean_over_data_([bce])

@@ -12,6 +12,7 @@ place) and to the JAX C++ parser's bit for bit.
 import json
 import threading
 
+import jax_parser_once  # noqa: F401  (the JAX parser built and loaded under a file lock)
 import numpy as np
 import pytest
 import torch

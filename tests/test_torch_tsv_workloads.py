@@ -16,6 +16,7 @@ comparison holds the update, not the divergence's amplification of rounding.
 """
 
 import jax
+import jax_parser_once  # noqa: F401  (the JAX parser built and loaded under a file lock)
 import numpy as np
 import pytest
 import torch
