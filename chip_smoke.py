@@ -24,7 +24,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
               table's two halves by row_offset (phase 10c); the table update
               over avazu's 9,459,467 rows and kdd's 50,666,853 (753,664 and
               327,680 uniform positions, among them every slot's last row),
-              bit for bit over the whole table.  With errors
+              bit for bit over the whole table; the segment-sum over the same
+              three tables' slots at batch 32768 (rows and run ends equal to
+              the plain version's, zeros off the run ends, each run within
+              2^-20 of its sum of |g| from float64 sums, equal bits from two
+              runs; the plain version, the PyTorch composite it replaced, as
+              the library call too).  With errors
               and CUDA-event times of kernel, plain version and the one
               PyTorch call that computes the same function; for the
               dot-product and the table update also the kernel's time with
@@ -32,9 +37,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               supernet's shapes, in rows named "_b512" and "_b4096": the body
               at S = 64 (training forward and backward at batch 512, eval
               forward at 4096), the dot-product at n = 46 (both at 512, the
-              forward at 4096) and the table update over the search-capped
-              table (3,069,317 rows) at batch 512, each with cold_ms; and the
-              search's shapes: a group's folded launches, the body's eval
+              forward at 4096) and the segment-sum and the table update over
+              the search-capped table (3,069,317 rows) at batch 512, each
+              with cold_ms; and the search's shapes: a group's folded
+              launches, the body's eval
               forward at S = 64 and the dot-product forward at n = 46 for 8 x
               512 and 8 x 1024 rows (a group step and an eval chunk), the
               dot-product backward at 8 x 512; one candidate's eval chunk
@@ -51,7 +57,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               of 512 rows at S = 64, forward and backward (one launch each
               for the group, bit-equal to 8 one-candidate launches, held
               against vmap of the plain version, vmap of SDPA its library
-              call); the table update over 8 stacked search-capped
+              call); the segment-sum over 8 candidates' rows of every slot
+              ([512, 208]) and the table update over 8 stacked search-capped
               tables (24,554,536 rows).  And in bf16 (rows
               "_bf16"), at batch 32768: the
               body and the attention core at S = 64, 48 and 16, the
@@ -70,10 +77,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
   3d. amp     phase 3's steps with compute_dtype bfloat16 (the AMP leg of the
               JAX bench): 10 xlarge and 4 autoctr steps at full vocab, batch
               32768, through the kernels, counted a step (body and dot-product
-              in bf16, the table update in f32), each against the plain
-              versions from the kernel path's state before it; an eval
-              forward; 2 xlarge steps unfused (the attention kernel in bf16);
-              step ms against phase 3's f32 step, peak memory, a profile line.
+              in bf16, the segment-sum and the table update in f32), each
+              against the plain versions from the kernel path's state before
+              it; an eval forward; 2 xlarge steps unfused (the attention kernel
+              in bf16); step ms against phase 3's f32 step, peak memory, a
+              profile line.
   3a. data    criteo-shaped TSV shards written from a seed (4 shards, 300,000
               training and 80,000 test rows; empty, negative and short
               fields): the C++ parser (built with g++; a failed build fails)
@@ -88,12 +96,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
               batch and the busy share under the profiler.
   3b. dense   the dense-gradient step of criteo-kaggle/xlarge at full vocab
               and batch 32768, for Adam, SGD and Adagrad with wd 1e-6: 3 steps
-              through the kernels, counted (no table update), and 3 through
-              the plain versions from the same weights and batches; step ms,
-              peak memory, and Adam's sign-edge elements counted.
+              through the kernels, counted (no segment-sum, no table update),
+              and 3 through the plain versions from the same weights and
+              batches; step ms, peak memory, and Adam's sign-edge elements
+              counted.
   3c. micro   the sparse step with 2 micro-batches against 1 at batch 32768
-              (one table update a step), then batch 65536 with 2 and with 1:
-              step ms and peak memory.
+              (one segment-sum and one table update a step), then batch 65536
+              with 2 and with 1: step ms and peak memory.
   4. supernet one-shot supernet training, criteo-kaggle space xlarge, 7
               blocks with LayerNorm, 3,069,317 rows, batch 512: 12 masked train
               steps (masks from the port's ChoiceSampler through the device
@@ -101,9 +110,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               dot-product gate of 0) and one eval forward at batch 4096 through
               the kernels, with the launches of every step counted (7 body
               forward and 7 backward at S = 64, 7 dot-product forward and 7
-              backward at n = 46, 1 table update), then the same steps through
-              the plain versions, and a profile line; then the same 12 steps
-              in bf16, each against the plain versions from the same state.
+              backward at n = 46, 1 segment-sum, 1 table update), then the
+              same steps through the plain versions, and a profile line; then
+              the same 12 steps in bf16, each against the plain versions from
+              the same state.
   5. cli      nasrec_tpu_torch.cli.main_train on synthetic data, once per
               arch; 40 steps must lower the test loss, lift the AUROC above
               0.6 and launch every kernel of the path (counted as in phase 3).
@@ -142,8 +152,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               against plain:
               seconds, step ms, launches, peak memory of each, the forms'
               test losses within 2e-4 of each other; the LayerNorm-calibrate
-              mode as one K-candidate step for 3 steps (no table update),
-              against plain.
+              mode as one K-candidate step for 3 steps (no segment-sum, no
+              table update), against plain.
   7. search_rank  the JAX-trained supernet of experiments/search_quality_proxy
               re-scores the 24 initial candidates of its all_results.pickle with
               the proxy's protocol (experiments/search_quality_proxy.py: fine-tune
@@ -320,12 +330,13 @@ XL, AC = "criteo-kaggle/xlarge", "criteo-kaggle/autoctr"
 # The S of every body a main path runs, held and timed in phase 2.
 BODY_SLOTS = (64, 48, 16)
 # Every kernel launch of one train step: the dot-product forward and backward
-# at each n, the body's training forward and backward at each S, and the
-# table update.
+# at each n, the body's training forward and backward at each S, the
+# segment-sum and the table update.
+TABLE_KERNELS = {"segment_sum", "table_update"}
 TRAIN_STEP_KERNELS = {
     arch: ({f"dot_scores_tril_{k}_n{n}" for k in ("fwd", "bwd") for n in dots}
            | {f"transformer_body_{k}_s{s}" for k in ("fwd_train", "bwd") for s in bodies}
-           | {"table_update"})
+           | TABLE_KERNELS)
     for arch, (dots, bodies) in ARCH_SHAPES.items()}
 # An eval forward (under no_grad) launches the forward kernels only.
 EVAL_KERNELS = {
@@ -358,10 +369,11 @@ TSV_TIMED_STEPS = 16
 # Phase 3b (dense): the dense-gradient step of criteo-kaggle/xlarge at full
 # vocab, batch 32768, per (optimizer, wd, constant lr); 3 steps through the
 # kernels and 3 through the plain versions.  A step launches the kernels of a
-# sparse step but the table update: the optimizer updates the whole table.
+# sparse step but the segment-sum and the table update: the optimizer updates
+# the whole table.
 DENSE_STEPS = 3
 DENSE_SETTINGS = (("adam", 0.0, 1e-3), ("sgd", 0.0, 0.01), ("adagrad", 1e-6, 0.01))
-DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - {"table_update"}
+DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS
 # Phase 3c (micro): the sparse step with 2 micro-batches against 1 at batch
 # 32768 (2 steps), then batch 65536 with 2 and with 1.
 MICRO_STEPS = 2
@@ -386,7 +398,7 @@ SN_BF16_CLI_STEPS = 3
 SN_STEP_LAUNCHES = {"transformer_body_fwd_train_s64": SN_BLOCKS,
                     "transformer_body_bwd_s64": SN_BLOCKS,
                     "dot_scores_tril_fwd_n46": SN_BLOCKS, "dot_scores_tril_bwd_n46": SN_BLOCKS,
-                    "table_update": 1}
+                    "segment_sum": 1, "table_update": 1}
 SN_EVAL_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
                     "dot_scores_tril_fwd_n46": SN_BLOCKS}
 # The search (phase 6) at the canonical search configuration: the phase-4
@@ -415,17 +427,19 @@ SEARCH_STEP_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
                         "dot_scores_tril_fwd_n46": SN_BLOCKS}
 # A whole-net group step (batch_candidates, the default): the K-candidate
 # body's training forward and backward and the dot-product at 8 x 512 rows
-# in every block, one table update over the 8 stacked tables; its eval
+# in every block, one segment-sum over the 8 candidates' rows of every slot
+# ([512, 8 x 26]) and one table update over the 8 stacked tables; its eval
 # chunk the K-candidate eval forward and the dot-product forward.
 WHOLE_STEP_LAUNCHES = {f"transformer_body_fwd_train_s64_k{SEARCH_GROUP}": SN_BLOCKS,
                        f"transformer_body_bwd_s64_k{SEARCH_GROUP}": SN_BLOCKS,
                        "dot_scores_tril_fwd_n46": SN_BLOCKS, "dot_scores_tril_bwd_n46": SN_BLOCKS,
-                       "table_update": 1}
+                       "segment_sum": 1, "table_update": 1}
 WHOLE_EVAL_LAUNCHES = {f"transformer_body_fwd_s64_k{SEARCH_GROUP}": SN_BLOCKS,
                        "dot_scores_tril_fwd_n46": SN_BLOCKS}
-# LayerNorm-calibrate: the same but the table update (the table is frozen);
-# the body's two LayerNorms train, so each candidate has its own parameters.
-LN_STEP_LAUNCHES = {k: v for k, v in WHOLE_STEP_LAUNCHES.items() if k != "table_update"}
+# LayerNorm-calibrate: the same but the segment-sum and the table update (the
+# table is frozen); the body's two LayerNorms train, so each candidate has its
+# own parameters.
+LN_STEP_LAUNCHES = {k: v for k, v in WHOLE_STEP_LAUNCHES.items() if k not in TABLE_KERNELS}
 # The search-quality proxy (phase 7; experiments/search_quality_proxy.py:57-58,
 # :138-144, :202-210): its JAX-trained supernet and the protocol of its EA.
 PROXY_DIR = ROOT / "experiments" / "search_quality_proxy"
@@ -599,10 +613,11 @@ def dtype_of(name: str):
 
 
 def bf16_named(names):
-    """Launch keys of a bf16 run: every kernel but the table update (f32 under
-    bf16 compute) has "_bf16" added.  A set or a dict of counts."""
+    """Launch keys of a bf16 run: every kernel but the segment-sum and the
+    table update (f32 under bf16 compute) has "_bf16" added.  A set or a dict
+    of counts."""
     def rename(k):
-        return k if k.startswith("table_update") else k + "_bf16"
+        return k if k in TABLE_KERNELS else k + "_bf16"
 
     if isinstance(names, dict):
         return {rename(k): v for k, v in names.items()}
@@ -610,21 +625,26 @@ def bf16_named(names):
 
 
 def kernel_modules():
-    """Name prefix of a kernel's rows and launch counts -> its wrapper module."""
-    from nasrec_tpu_torch.ops.kernels import attention, dotprod, table_update, transformer_body
+    """(name prefix of a kernel's rows and launch counts, its wrapper module)."""
+    from nasrec_tpu_torch.ops.kernels import (
+        attention,
+        dotprod,
+        segment_sum,
+        table_update,
+        transformer_body,
+    )
 
-    return {"dot_scores_tril_": dotprod, "transformer_body_": transformer_body,
-            "tiny_head_attention_": attention, "": table_update}
+    return (("dot_scores_tril_", dotprod), ("transformer_body_", transformer_body),
+            ("tiny_head_attention_", attention), ("", table_update), ("", segment_sum))
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
+    for _, mod in kernel_modules():
         mod.LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    return {prefix + k: v for prefix, mod in kernel_modules().items()
-            for k, v in mod.LAUNCHES.items()}
+    return {prefix + k: v for prefix, mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def kernel_row(name, source, replaces, err, kern, plain, lib, nbytes, flops, hbm,
@@ -1393,6 +1413,75 @@ def check_row_offset_halves(table0, acc0, rows, seg, lr, t_whole, a_whole) -> No
     del t_h, a_h
 
 
+SEGSUM_SOURCE = "nasrec_tpu_torch/csrc/segment_sum.cu"
+# No Pallas kernel: the JAX package's segment-sum is XLA's cumsum and cummax.
+SEGSUM_REPLACES = "nasrec_tpu/train/sparse_embedding.py:82 (XLA cumsum, cummax)"
+
+
+def check_segment_sum(vocab, hbm, gen, rows_out, batch=BATCH, name="segment_sum",
+                      candidates=1) -> None:
+    """The segment-sum kernel on a batch of uniform indices over the fused
+    table of `vocab` (`candidates` stacked tables: the search's whole-net
+    group lays candidate k's rows of slot s in column (k, s)) against its
+    plain version, the PyTorch composite it replaced: rows and is_end equal,
+    seg exactly zero off the run ends and there within 2^-20 of each run's
+    sum of |g| from the float64 sums, two launches with the same bits.  The
+    row `name` times it; plain_ms and library_ms are both the composite."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.models.embedding import table_offsets
+    from nasrec_tpu_torch.ops.kernels import segment_sum
+
+    dev = torch.device(DEVICE)
+    total = int(sum(vocab))
+    idx = draw_indices(np.random.RandomState(0), batch, vocab, "uniform").astype(np.int64)
+    idx = idx + np.asarray(table_offsets(vocab))
+    idx = np.concatenate([idx + k * total for k in range(candidates)], axis=1)
+    idx2d = torch.as_tensor(idx.astype(np.int32), device=dev)
+    g = 0.01 * torch.randn(idx2d.numel(), 16, device=dev, generator=gen)
+    rows, seg, is_end = segment_sum.segment_sum_kernel(idx2d, g)
+    again = segment_sum.segment_sum_kernel(idx2d, g)
+    p_rows, p_seg, p_end = segment_sum.segment_sum_plain(idx2d, g)
+    torch.cuda.synchronize()
+    # float64 sums of each run, in position order.
+    b, c = idx2d.shape
+    _, order = torch.sort(idx2d.t(), dim=1, stable=True)
+    flat = torch.take_along_dim(g.double().reshape(b, c, 16).transpose(0, 1),
+                                order[:, :, None], dim=1).reshape(-1, 16)
+    start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), is_end[:-1]])
+    run = start.cumsum(0) - 1
+    sums = torch.zeros(int(is_end.sum()), 16, dtype=torch.float64, device=dev)
+    abs_sums = torch.zeros_like(sums).index_add_(0, run, flat.abs())
+    sums.index_add_(0, run, flat)
+    err = (seg[is_end].double() - sums).abs()
+    plain_err = (p_seg[p_end].double() - sums).abs().max().item()
+    off = seg[~is_end]
+    repeat = all(torch.equal(a, w) for a, w in zip((rows, seg, is_end), again))
+    ok = (torch.equal(rows, p_rows) and torch.equal(is_end, p_end) and repeat
+          and bool((off == 0).all()) and not bool(torch.signbit(off).any())
+          and bool((err <= 2.0 ** -20 * abs_sums).all()))
+    emit({"phase": "kernels", "kernel": "segment_sum", "row": name, "batch": b, "columns": c,
+          "runs": int(is_end.sum()), "longest_run": int(torch.bincount(run).max()),
+          "max_abs_err_vs_float64": err.max().item(),
+          "plain_max_abs_err_vs_float64": plain_err,
+          "max_err_over_run_abs_sum": (err / abs_sums.clamp(min=1e-30)).max().item(),
+          "bit_exact_repeat": repeat, "ok": ok})
+    if not ok:
+        raise SystemExit(f"segment_sum ({b} x {c}) disagrees with its plain version or the "
+                         "float64 sums")
+    # Bytes: g, order (int64) and the sorted rows read, seg and is_end written.
+    nbytes = b * c * (64 + 8 + 4 + 64 + 1)
+    rows_out[name] = kernel_row(
+        name, SEGSUM_SOURCE, SEGSUM_REPLACES, err.max().item(),
+        lambda: segment_sum.segment_sum_kernel(idx2d, g),
+        lambda: segment_sum.segment_sum_plain(idx2d, g),
+        lambda: segment_sum.segment_sum_plain(idx2d, g), nbytes, 16 * b * c, hbm,
+        heavy=True, cold=True)
+    del idx2d, g, rows, seg, is_end, again, p_rows, p_seg, p_end, flat, sums, abs_sums
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(hbm):
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
@@ -1418,16 +1507,20 @@ def phase_kernels(hbm):
         check_dot_scores(n, hbm, gen, rows_out, dtype="bfloat16")
     spec = DATASETS["criteo-kaggle"]
     check_table_update(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
+    check_segment_sum(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
     # Phase 11's tables: every slot's rows of avazu and kdd, the batch's
-    # positions uniform over them, the highest rows among them.
+    # positions uniform over them, the highest rows among them; the
+    # segment-sum over their slots.
     for dataset in DS_DATASETS:
         check_table_update(DATASETS[dataset].vocab_sizes(VOCAB_CAP), hbm, gen, rows_out,
                            name=table_row(dataset), kinds=("uniform",), top_rows=True)
+        check_segment_sum(DATASETS[dataset].vocab_sizes(VOCAB_CAP), hbm, gen, rows_out,
+                          name=segsum_row(table_row(dataset)))
 
     # The supernet's shapes: every block's transformer body at S = 64 and its
     # dot-product at n = 46, batch SN_BATCH in training (rows "_b512") and
-    # SN_EVAL_BATCH in the eval forward ("_b4096"); the table update over the
-    # search-capped table.
+    # SN_EVAL_BATCH in the eval forward ("_b4096"); the segment-sum and the
+    # table update over the search-capped table.
     tr, ev = f"_b{SN_BATCH}", f"_b{SN_EVAL_BATCH}"
     # The search's shapes: a group's folded launches at 8 x 512 rows (a
     # fine-tune step, "_b4096") and 8 x 1024 (an eval chunk, "_b8192"); one
@@ -1460,6 +1553,10 @@ def phase_kernels(hbm):
                        f"table_update{tr}")
     check_table_update(spec.vocab_sizes(SN_VOCAB_CAP) * SEARCH_GROUP, hbm, gen, rows_out,
                        SN_BATCH, f"table_update_k{SEARCH_GROUP}{tr}", kinds=("uniform",))
+    check_segment_sum(spec.vocab_sizes(SN_VOCAB_CAP), hbm, gen, rows_out, SN_BATCH,
+                      f"segment_sum{tr}")
+    check_segment_sum(spec.vocab_sizes(SN_VOCAB_CAP), hbm, gen, rows_out, SN_BATCH,
+                      f"segment_sum_k{SEARCH_GROUP}{tr}", SEARCH_GROUP)
     _l2_scratch.clear()      # the main paths' peak memory is read without it
     torch.cuda.empty_cache()
     return rows_out
@@ -1515,12 +1612,21 @@ def table_row(dataset: str) -> str:
     return "table_update" if dataset == "criteo-kaggle" else f"table_update_{dataset}"
 
 
+def segsum_row(table: str) -> str:
+    """The segment-sum's row beside the table update's row `table`: the same
+    batch over the same slots."""
+    return table.replace("table_update", "segment_sum", 1)
+
+
 def add_launches(rows_out, launches: dict, dataset: str = "criteo-kaggle") -> None:
     """Launches at batch 32768 counted in the rows of the same kernel and
-    shape (the table update's in the row of the dataset's table)."""
+    shape (the table update's and the segment-sum's in the rows of the
+    dataset's table)."""
     for name, count in launches.items():
         if name == "table_update":
             name = table_row(dataset)
+        elif name == "segment_sum":
+            name = segsum_row(table_row(dataset))
         rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
 
 
@@ -1703,7 +1809,8 @@ def phase_amp(arch, rows_out, f32_step_ms: float, phase="amp") -> float:
     """Phase 3d: phase 3's main path with compute_dtype bfloat16 (the AMP leg):
     AMP_STEPS sparse steps of <arch> at full vocab and batch 32768 through the
     kernels, counted a step (the body and dot-product kernels in bf16, the
-    table update in f32), each against the plain versions from the same state,
+    segment-sum and the table update in f32), each against the plain versions
+    from the same state,
     and an eval forward of each; for an arch with transformer nodes 2 more
     steps with the nodes unfused (the attention kernel in bf16); a profile
     line.  Returns the step's ms."""
@@ -2173,7 +2280,8 @@ def phase_dense(rows_out, sparse_step_ms: float):
 
 def phase_micro(rows_out):
     """Phase 3c: the sparse step with micro_batches = 2 against 1 from the same
-    weights and batches at batch 32768 (one table update a step, the body and
+    weights and batches at batch 32768 (one segment-sum and one table update a
+    step, the body and
     dot-product kernels once a slice), then batch 65536 with 2 and with 1."""
     from collections import Counter
 
@@ -2216,7 +2324,8 @@ def phase_micro(rows_out):
     loss_diff = max(abs(a - b) for a, b in zip(one[2], two[2]))
     logit_diff = (one[4] - two[4]).abs().max().item()
     want_two = Counter({k: 2 * MICRO_STEPS for k in TRAIN_STEP_KERNELS[XL]})
-    want_two["table_update"] = MICRO_STEPS
+    for k in TABLE_KERNELS:
+        want_two[k] = MICRO_STEPS
     ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
           and acc_diff <= PARAM_TOL
           and one[5] == {k: MICRO_STEPS for k in TRAIN_STEP_KERNELS[XL]}
@@ -2541,12 +2650,13 @@ def join_launches(rows_out, launches: dict, batch: int, hbm, gen, table=None) ->
     """Launches counted at one batch into the rows "<kernel>_<shape>_b<batch>";
     a row that does not exist yet is made first, its kernel checked against the
     plain version at that shape and timed (`check_dot_scores`,
-    `check_transformer_body`, `check_table_update`).  table: (name, vocab) of
-    the run's table, whose update goes into the row "<name>_b<batch>"."""
+    `check_transformer_body`, `check_table_update`, `check_segment_sum`).
+    table: (name, vocab) of the run's table, whose update goes into the row
+    "<name>_b<batch>" and whose segment-sum beside it (`segsum_row`)."""
     suffix = f"_b{batch}"
     for name, count in launches.items():
-        if name == "table_update" and table is not None:
-            name = table[0]
+        if name in TABLE_KERNELS and table is not None:
+            name = table[0] if name == "table_update" else segsum_row(table[0])
         row = name + suffix
         if row not in rows_out:
             dot = re.fullmatch(r"dot_scores_tril_(fwd|bwd)_n(\d+)", name)
@@ -2559,6 +2669,8 @@ def join_launches(rows_out, launches: dict, batch: int, hbm, gen, table=None) ->
             elif table is not None and name == table[0]:
                 check_table_update(table[1], hbm, gen, rows_out, batch, row,
                                    kinds=("uniform",), top_rows=True)
+            elif table is not None and name == segsum_row(table[0]):
+                check_segment_sum(table[1], hbm, gen, rows_out, batch, row)
             else:
                 raise SystemExit(f"no row for the launches of {row}")
         rows_out[row]["launches"] = rows_out[row].get("launches", 0) + count
@@ -2925,12 +3037,15 @@ def add_group_launches(rows_out, launches: dict, per_candidate: int, folded: int
                        table: str) -> None:
     """An evaluator's launches into their rows: the K-candidate body's at the
     batch a candidate (its launch keys carry "_k<K>"), every other kernel's at
-    the rows it launched on, the table update's into `table`.  A bf16
-    launch of another kernel at these batches has no row (phase 4 leaves its
-    bf16 launches out the same way)."""
+    the rows it launched on, the table update's into `table` and the
+    segment-sum's into the row beside it.  A bf16 launch of another kernel at
+    these batches has no row (phase 4 leaves its bf16 launches out the same
+    way)."""
     for key, count in launches.items():
         if key == "table_update":
             row = table
+        elif key == "segment_sum":
+            row = segsum_row(table)
         elif re.search(r"_k\d+", key):
             row = f"{key}_b{per_candidate}"
         else:
@@ -3353,7 +3468,7 @@ def phase_cli(space, compute_dtype="float32"):
     lr 0.16 a run this short has a warmup of 0 steps and diverges, in the
     JAX package as here, so the phase trains at lr 0.02.)  compute_dtype
     "bfloat16" passes --compute_dtype bfloat16: the body and dot-product
-    kernels launch in bf16, the table update in f32."""
+    kernels launch in bf16, the segment-sum and the table update in f32."""
     import torch
 
     from nasrec_tpu_torch.cli import main_train
@@ -3394,7 +3509,8 @@ def phase_cli(space, compute_dtype="float32"):
 def phase_supernet_cli_bf16(tmp: Path) -> None:
     """nasrec_tpu_torch.cli.train_supernet --compute_dtype bfloat16 at 7
     blocks and batch 512 for SN_BF16_CLI_STEPS steps: finite losses, every
-    step's kernels launched in bf16 (the table update in f32), and the flag
+    step's kernels launched in bf16 (the segment-sum and the table update in
+    f32), and the flag
     in configs_args.json."""
     from nasrec_tpu_torch.cli import train_supernet
 
@@ -3502,7 +3618,7 @@ def phase_multi_device(rows_out, main_step_ms: float) -> None:
     loss_err = max(abs(a - b) for a, b in zip(off_losses, ref_losses))
     param_err = dense_diff(off, ref)
     split = {k: v / (MD_STEPS - 1) * 1e3 for k, v in timings.items()}
-    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL] - {"table_update"}}
+    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS}
     ok = (loss_err <= OFFLOAD_TOL and param_err <= OFFLOAD_TOL
           and table_err <= OFFLOAD_REL * table_moved and acc_err <= OFFLOAD_REL * acc_moved
           and table_moved > 0 and acc_moved > 0 and launches == want_off

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("dotprod", "table_update", "attention", "transformer_body")
+KERNEL_SOURCES = ("dotprod", "table_update", "attention", "transformer_body", "segment_sum")
 
 _c_ptr, _c_ll, _c_int, _c_float = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
@@ -65,10 +65,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                             _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
                             _c_ptr),
     },
+    "segment_sum": {
+        "nasrec_segment_sum": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll,
+                               _c_int, _c_ptr),
+    },
 }
 
-# Every kernel but the table update has a bf16 twin of each entry point, with
-# the same arguments (ctypes binds by name).
+# Every kernel but the table update and the segment-sum (both f32 under bf16
+# compute) has a bf16 twin of each entry point, with the same arguments
+# (ctypes binds by name).
 for _name in ("dotprod", "attention", "transformer_body"):
     SIGNATURES[_name].update({f"{fn}_bf16": args for fn, args in SIGNATURES[_name].items()})
 

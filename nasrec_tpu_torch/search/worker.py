@@ -242,7 +242,7 @@ class BatchedWholeGroup:
                 b, s = rows.shape[1], rows.shape[2]
                 d_stem = grads[-1].reshape(k, b, s, e).transpose(0, 1).reshape(b * k * s, e)
                 pos, seg, _ = rowwise_segment_sum_slotwise(
-                    rows.transpose(0, 1).reshape(b, k * s), d_stem)
+                    rows.transpose(0, 1).reshape(b, k * s), d_stem, self.impl)
                 seg = seg.reshape(k, b * s, e)
                 sq = sq + seg.square().sum(dim=(1, 2))
             scale = global_norm_scale(sq, self.grad_clip)

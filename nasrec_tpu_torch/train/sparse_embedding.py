@@ -2,7 +2,7 @@
 `nasrec_tpu/train/sparse_embedding.py`, with micro-batches).
 
 The step differentiates w.r.t. the looked-up stem [B, S*E] instead of the
-table, sums duplicate rows' gradients (sort + cumsum segment-sum), and
+table, sums duplicate rows' gradients (sort + segment-sum), and
 updates only the touched rows of the table and its Adagrad accumulator:
 
     rows, seg = aggregate(idx, d_stem)      # seg = per-unique-row summed grad
@@ -28,6 +28,7 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from nasrec_tpu_torch import tracing
+from nasrec_tpu_torch.ops.kernels.segment_sum import segment_sum
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
 from nasrec_tpu_torch.parallel.embedding import sharded_lookup
 from nasrec_tpu_torch.parallel.mesh import Mesh
@@ -48,7 +49,7 @@ from nasrec_tpu_torch.train.optim import (
 )
 
 
-def rowwise_segment_sum_slotwise(idx2d: torch.Tensor, g: torch.Tensor):
+def rowwise_segment_sum_slotwise(idx2d: torch.Tensor, g: torch.Tensor, impl: str = "auto"):
     """Sum the gradients of duplicate rows, for slot-partitioned indices.
 
     idx2d: [B, S] fused-table rows, column s confined to slot s's row range
@@ -56,28 +57,12 @@ def rowwise_segment_sum_slotwise(idx2d: torch.Tensor, g: torch.Tensor):
     the columns gives a globally sorted stream.  g: [B*S, E] in (b, s)
     row-major order.  Returns (rows [B*S] sorted, seg [B*S, E], is_end [B*S]):
     seg holds each row's full sum at its segment's LAST position and exact
-    zeros elsewhere; is_end marks those positions.  Sort and cumsum are
-    PyTorch ops, as they are XLA ops outside Pallas in the JAX package.
+    zeros elsewhere; is_end marks those positions.  The sort is a PyTorch op,
+    as it is an XLA op outside Pallas in the JAX package; the sums are the
+    kernel of ops/kernels/segment_sum.py on the card, and on the CPU (or with
+    impl='plain') its plain version, the JAX package's cumsum composite.
     """
-    b, s = idx2d.shape
-    e = g.shape[-1]
-    rows_bs, order_b = torch.sort(idx2d, dim=0, stable=True)
-    g_sorted = torch.take_along_dim(g.reshape(b, s, e), order_b[:, :, None], dim=0)
-    cs = torch.cumsum(g_sorted, dim=0)                                 # [B, S, E]
-    change = rows_bs[1:] != rows_bs[:-1]
-    ones = torch.ones((1, s), dtype=torch.bool, device=idx2d.device)
-    is_end = torch.cat([change, ones], dim=0)                          # [B, S]
-    is_start = torch.cat([ones, change], dim=0)
-    iota = torch.arange(b, device=idx2d.device)[:, None].expand(b, s)
-    # Each position's segment start: running maximum of start positions.
-    start_idx = torch.cummax(torch.where(is_start, iota, 0), dim=0).values
-    # base = cumsum one row above the segment start (zero for row-0 starts).
-    base = torch.take_along_dim(cs, (start_idx - 1).clamp(min=0)[:, :, None], dim=0)
-    base = torch.where((start_idx > 0)[:, :, None], base, 0.0)
-    seg_col = torch.where(is_end[:, :, None], cs - base, 0.0)
-    rows = rows_bs.t().reshape(-1)
-    seg = seg_col.transpose(0, 1).reshape(b * s, e)
-    return rows, seg, is_end.t().reshape(-1)
+    return segment_sum(idx2d, g, impl)
 
 
 def sparse_adagrad_table_update(table, acc, rows, seg, lr: float, eps: float = 1e-2,
@@ -128,7 +113,8 @@ def make_sparse_embedding_train_step(
     A frozen parameter (`trainable`) keeps its value and its slots.
     impl='auto' runs the hand-written kernels on the card and their plain
     versions on the CPU; impl='plain' names the plain versions.  `table_impl`
-    picks the table update's apart from the model's (None: `impl`).
+    picks the segment-sum's and the table update's apart from the model's
+    (None: `impl`).
 
     microbatch > 1 runs the forward and backward one slice of B/m rows at a
     time (one slice's activations in memory) and keeps the update math of
@@ -217,7 +203,8 @@ def make_sparse_embedding_train_step(
                     if mesh.data > 1:
                         d_all = mesh.gather_over_data(d_all / mesh.data)
                     rows, seg, _ = rowwise_segment_sum_slotwise(
-                        mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]))
+                        mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]),
+                        table_impl)
             if grad_clip is not None:
                 with tracing.span("train.clip"):
                     sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()

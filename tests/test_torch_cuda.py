@@ -5,6 +5,10 @@ kernel's tile, the smallest operand (n = 2, one pair score), an odd slot count
 the launch shapes the defaults do not use, an empty update, a position count
 that fills no whole block, sentinel rows, row_offset shards and a hot row
 repeated at many positions;
+the segment-sum against its plain version and float64 sums at [32768, 26]
+with Criteo's vocabularies, a column of one row, a column of distinct rows,
+B = 1, B = 1001 (a ragged tile), the search's [512, 8 x 26] and [37, 5], two
+launches giving the same bits;
 the transformer body and the attention core at batches of 1, 37 and 2048,
 the body with x in both layouts its kernels read in place; the body at S = 64
 and the dot-product at n = 46 (the supernet's shapes) at batches of 1, 7, 33,
@@ -19,7 +23,8 @@ once for a group of 4, and three whole-net candidates as one K-candidate
 step against the plain path and the one-at-a-time form (test losses 1e-4); device_prefetch's copies on a side stream
 against blocking copies over 50 batches; the dense-gradient step's launches (no
 table update) for Adam, SGD and Adagrad with wd > 0, against its plain step;
-and the micro-batched sparse step's single table update against one slice;
+and the micro-batched sparse step's single segment-sum and table update against
+one slice;
 profiling.dot_flops of the xlarge forward (and of a forward and backward)
 through the kernels against the plain versions, and both device checks
 (tools/body_device_check.py, tools/sweep_device_check.py); the host-RAM
@@ -37,7 +42,8 @@ Tolerance (f32): the dot-product forward rtol 1e-5 / atol 1e-5, its backward
 values, ordered differently from cuBLAS), equal bits from two runs; the table
 update exact, since the kernel rounds
 step by step like the plain version and each row is written by one thread
-group.  The transformer body and the attention core: forward rtol 1e-5 /
+group.  The segment-sum: rows and is_end exact, seg exactly zero off the run
+ends and at them within 2^-20 of the run's sum of |g| from the float64 sums.  The transformer body and the attention core: forward rtol 1e-5 /
 atol 1e-5, input gradients rtol 2e-4 / atol 2e-4 (the tolerances the JAX
 package holds its TPU kernels to), parameter gradients, which sum over every
 position of the batch, 2e-4 of the gradient's largest magnitude.  The saved
@@ -51,7 +57,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from nasrec_tpu_torch.ops.kernels import attention, dotprod, table_update, transformer_body
+from nasrec_tpu_torch.ops.kernels import (
+    attention,
+    dotprod,
+    segment_sum,
+    table_update,
+    transformer_body,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,6 +180,103 @@ def test_table_update_kernel_row_offset_shards(dev):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat([lo_t, hi_t]), whole_t)
     assert torch.equal(torch.cat([lo_a, hi_a]), whole_a)
+
+
+def _segsum_case(dev, case):
+    """idx2d [B, C] int32 fused rows and g [B*C, 16] of a segment-sum case."""
+    import numpy as np
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.embedding import table_offsets
+
+    criteo = DATASETS["criteo-kaggle"].vocab_sizes(None)
+    rng = np.random.RandomState(len(case))
+    k = 1
+    if case == "criteo":              # the main path: batch 32768, Criteo's full vocab
+        b, vocab = 32768, criteo
+    elif case == "one_row":           # a column of one row: one run across 20 tiles
+        b, vocab = 5000, (1, 50, 1)
+    elif case == "distinct":          # a column of distinct rows: no run longer than 1
+        b, vocab = 3000, (3000, 7)
+    elif case == "b1":
+        b, vocab = 1, criteo
+    elif case == "b1001":             # a ragged last tile; runs across tiles
+        b, vocab = 1001, tuple(min(v, 300) for v in criteo)
+    elif case == "search_k8":         # the search's 8 stacked tables, [512, 8 x 26]
+        b, vocab, k = 512, tuple(min(v, 500_000) for v in criteo), 8
+    elif case == "b37":
+        b, vocab = 37, (5, 1, 40, 2, 9)
+    cols = []
+    for v in vocab:
+        cols.append(rng.permutation(v)[:b] if case == "distinct" and v == b
+                    else rng.randint(0, v, size=b))
+    idx = np.stack(cols, 1).astype(np.int64) + np.asarray(table_offsets(vocab))
+    # Candidate j's rows lie above candidate j-1's table, column (j, s) of
+    # [B, K S] as the whole-net group step lays them out.
+    idx = np.concatenate([idx + j * sum(vocab) for j in range(k)], axis=1).astype(np.int32)
+    g = rng.randn(b * idx.shape[1], 16).astype(np.float32)
+    return torch.as_tensor(idx, device=dev), torch.as_tensor(g, device=dev)
+
+
+def _segsum_float64(idx2d, g):
+    """Each run's float64 sum and sum of |g| (per float, in position order),
+    and each column's sum of |g| a position."""
+    b, c = idx2d.shape
+    rows, order = torch.sort(idx2d.t().long(), dim=1, stable=True)
+    g_sorted = torch.take_along_dim(g.double().reshape(b, c, 16).transpose(0, 1),
+                                    order[:, :, None], dim=1)
+    start = torch.ones_like(rows, dtype=torch.bool)
+    start[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    run = start.reshape(-1).cumsum(0) - 1
+    n = int(run[-1]) + 1
+    flat = g_sorted.reshape(-1, 16)
+    sums = torch.zeros(n, 16, dtype=torch.float64, device=g.device).index_add_(0, run, flat)
+    abs_sums = torch.zeros_like(sums).index_add_(0, run, flat.abs())
+    col_abs = g_sorted.abs().sum(dim=1, keepdim=True).expand(c, b, 16).reshape(-1, 16)
+    return sums, abs_sums, col_abs
+
+
+@pytest.mark.parametrize("case", ["criteo", "one_row", "distinct", "b1", "b1001", "search_k8",
+                                  "b37"])
+def test_segment_sum_kernel_matches_plain_and_float64(dev, case):
+    """rows and is_end equal the plain version's; seg is exact zero (+0.0) off
+    the run ends, and at them within 2^-20 of the run's sum of |g| from the
+    float64 sums (16 ulps of that sum: the worst case of any f32 order for
+    runs of up to 17 positions, far above the error of longer ones), and
+    within that plus the plain version's own bound ((2B + 1) 2^-24 of the
+    column's sum of |g|, a difference of prefix sums) of the plain version's;
+    two launches give the same bits."""
+    idx2d, g = _segsum_case(dev, case)
+    b = idx2d.shape[0]
+    before = segment_sum.LAUNCHES["segment_sum"]
+    rows, seg, is_end = segment_sum.segment_sum(idx2d, g)       # CUDA, "auto": the kernel
+    again = segment_sum.segment_sum(idx2d, g)
+    p_rows, p_seg, p_end = segment_sum.segment_sum(idx2d, g, impl="plain")
+    torch.cuda.synchronize()
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 2
+    assert seg.dtype == torch.float32 and seg.is_contiguous() and seg.shape == p_seg.shape
+    assert torch.equal(rows, p_rows) and torch.equal(is_end, p_end)
+    assert all(torch.equal(a, w) for a, w in zip((rows, seg, is_end), again))
+    off = seg[~is_end]
+    assert bool((off == 0).all()) and not bool(torch.signbit(off).any())
+    sums, abs_sums, col_abs = _segsum_float64(idx2d, g)
+    err = (seg[is_end].double() - sums).abs()
+    assert bool((err <= 2.0 ** -20 * abs_sums).all()), float(err.max())
+    tol = 2.0 ** -20 * torch.zeros_like(col_abs).index_put_((is_end,), abs_sums)
+    assert bool(((seg.double() - p_seg.double()).abs()
+                 <= tol + (2 * b + 1) * 2.0 ** -24 * col_abs).all())
+
+
+def test_segment_sum_kernel_refuses_what_it_does_not_take(dev):
+    idx2d, g = _segsum_case(dev, "b37")
+    shifted = torch.empty(g.numel() + 1, device=dev)[1:].view(g.shape)   # 4 bytes off
+    shifted.copy_(g)
+    before = dict(segment_sum.LAUNCHES)
+    for bad in ((idx2d.long(), g), (idx2d, g.double()), (idx2d, g[:-1]),
+                (idx2d.t().contiguous().t(), g), (idx2d, shifted), (idx2d.cpu(), g.cpu())):
+        with pytest.raises(ValueError):
+            segment_sum.segment_sum_kernel(*bad)
+    assert dict(segment_sum.LAUNCHES) == before
 
 
 def _body_case(dev, batch, slots, seed, layout="contiguous"):
@@ -554,7 +663,7 @@ def test_batched_whole_evaluator_kernels_match_plain(dev):
     # 3 steps of 2 blocks, then 2 eval chunks of 2 blocks.
     assert _launched(before) == {"body_fwd_train_s64_k3": 6, "body_bwd_s64_k3": 6,
                                  "dot_fwd_n46": 6 + 4, "dot_bwd_n46": 6,
-                                 "body_fwd_s64_k3": 4, "table_update": 3}
+                                 "body_fwd_s64_k3": 4, "table_update": 3, "segment_sum": 3}
     res_p = make_candidate_evaluator(cfg, model, impl="plain", **args)(
         picks, lambda: iter(train), lambda: iter(test))
     res_s = make_candidate_evaluator(cfg, model, batch_candidates=False, **args)(
@@ -609,7 +718,7 @@ def _launches():
     return {**{"dot_" + k: v for k, v in dotprod.LAUNCHES.items()},
             **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()},
             **{"attn_" + k: v for k, v in attention.LAUNCHES.items()},
-            **table_update.LAUNCHES}
+            **table_update.LAUNCHES, **segment_sum.LAUNCHES}
 
 
 def _launched(before):
@@ -667,7 +776,8 @@ def test_micro_batched_step_updates_the_table_once(dev):
         step = make_sparse_embedding_train_step(lambda s: 0.05, microbatch=micro)
         before = _launches()
         state, _ = step(init_sparse_train_state(model), *batch)
-        assert _launched(before) == {**{k: micro for k in XLARGE_STEP}, "table_update": 1}
+        assert _launched(before) == {**{k: micro for k in XLARGE_STEP}, "table_update": 1,
+                                     "segment_sum": 1}
         states.append(state)
     sd_1, sd_2 = model_1.state_dict(), model_2.state_dict()
     for name in sd_1:
@@ -856,8 +966,8 @@ def test_bf16_xlarge_step_launches_the_bf16_kernels(dev):
         state, m = step(init_sparse_train_state(model), *batch)
         torch.cuda.synchronize()
         losses.append(float(m["loss"]))
-        want = ({**{k + "_bf16": 1 for k in XLARGE_STEP}, "table_update": 1} if impl == "auto"
-                else {})
+        want = ({**{k + "_bf16": 1 for k in XLARGE_STEP}, "table_update": 1,
+                 "segment_sum": 1} if impl == "auto" else {})
         assert _launched(before) == want
         assert m["logits"].dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in model_k.parameters())
@@ -983,7 +1093,7 @@ def test_sparse_mesh_step_over_nccl_at_world_size_one(dev):
         assert torch.distributed.get_backend() == "nccl"
     finally:
         distributed.shutdown()
-    assert launched == {**{k: 2 for k in XLARGE_STEP}, "table_update": 2}
+    assert launched == {**{k: 2 for k in XLARGE_STEP}, "table_update": 2, "segment_sum": 2}
     for _ in range(2):
         state_1, m_1 = step_1(state_1, *batch)
     assert float(m_m["loss"]) == float(m_1["loss"])

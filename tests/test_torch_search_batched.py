@@ -43,7 +43,7 @@ from nasrec_tpu.search import make_candidate_evaluator as jax_make_evaluator
 from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.choices import ChoiceMasks, choice_to_masks
 from nasrec_tpu_torch.models.transplant import from_jax_params
-from nasrec_tpu_torch.ops.kernels import attention, build, dotprod, table_update
+from nasrec_tpu_torch.ops.kernels import attention, build, dotprod, segment_sum, table_update
 from nasrec_tpu_torch.ops.kernels import transformer_body as tb
 from nasrec_tpu_torch.search import make_candidate_evaluator
 from nasrec_tpu_torch.search.worker import BatchedWholeGroup, FinalOnlyGroup
@@ -128,6 +128,11 @@ def _vjp_standin(plain, module, key, flops):
     return fwd, bwd
 
 
+def _segsum_standin(idx2d, g):
+    segment_sum.LAUNCHES["segment_sum"] += 1
+    return segment_sum.segment_sum_plain(idx2d, g)
+
+
 def _table_standin(table, acc, rows, seg16, lr, eps=1e-2, row_offset=0):
     table_update.LAUNCHES["table_update"] += 1
     return table_update.table_update_plain(table, acc, rows, seg16, lr, eps, row_offset)
@@ -152,7 +157,8 @@ def kernels(monkeypatch):
     monkeypatch.setattr(attention, "tiny_head_attention_fwd_kernel", afwd)
     monkeypatch.setattr(attention, "tiny_head_attention_bwd_kernel", abwd)
     monkeypatch.setattr(table_update, "table_update_kernel", _table_standin)
-    mods = (tb, dotprod, attention, table_update)
+    monkeypatch.setattr(segment_sum, "segment_sum_kernel", _segsum_standin)
+    mods = (tb, dotprod, attention, table_update, segment_sum)
 
     def launches():
         out = {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v for m in mods for k, v in m.LAUNCHES.items()}
@@ -352,8 +358,8 @@ def _run(group, ttr, tte, steps=2):
 @pytest.mark.parametrize("mode", ["final-only", "whole", "layernorm-calibrate"])
 def test_group_runs_each_kernel_once_a_node(kernels, mode):
     """A group step and an eval forward through the kernel route: each
-    kernel once a node for the whole group (the table update once a step),
-    no vmap fallback, the plain route's numbers."""
+    kernel once a node for the whole group (the segment-sum and the table
+    update once a step), no vmap fallback, the plain route's numbers."""
     ev, picks, ttr, tte = _small_group(mode)
     nb, k = ev.supernet.cfg.num_blocks, len(picks)
     group = ev.group(picks)
@@ -378,6 +384,7 @@ def test_group_runs_each_kernel_once_a_node(kernels, mode):
                 "dotprod.fwd_n46": nb, "dotprod.bwd_n46": nb}
         if mode == "whole":
             want["table_update.table_update"] = 1
+            want["segment_sum.segment_sum"] = 1
         assert step_launches == want
 
     got = _run(ev.group(picks), ttr, tte)
