@@ -82,6 +82,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
               it; an eval forward; 2 xlarge steps unfused (the attention kernel
               in bf16); step ms against phase 3's f32 step, peak memory, a
               profile line.
+  3e. dcnv2   DLRM-DCNv2's sparse step (models/dcn.py, configs/dcnv2.py) at
+              batch 16384 with MLPerf's 26 multi-hot bags (214 lookups a row)
+              and widths (128-wide rows, 3 cross layers of rank 512), each
+              slot's table its 4-way row share capped at DCN_VOCAB_CAP rows:
+              DCN_STEPS steps through the kernels (one 128-wide segment-sum
+              and table update a step, counted) and the same through the
+              plain versions from the same weights and batches (losses,
+              logits, parameters; the table and its accumulator against
+              their own change); then the two 128-wide kernels alone at the
+              step's shapes (the segment-sum held to float64, the update to
+              its plain version bit for bit), timed beside their bounds and
+              plain versions (rows segment_sum128, table_update128 of the
+              "dcnv2" line).
   3a. data    criteo-shaped TSV shards written from a seed (4 shards, 300,000
               training and 80,000 test rows; empty, negative and short
               fields): the C++ parser (built with g++; a failed build fails)
@@ -377,6 +390,28 @@ DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS
 # Phase 3c (micro): the sparse step with 2 micro-batches against 1 at batch
 # 32768 (2 steps), then batch 65536 with 2 and with 1.
 MICRO_STEPS = 2
+
+# Phase 3e (dcnv2): DLRM-DCNv2 at MLPerf's bags and widths, batch 16384, each
+# slot's 4-way row share capped at DCN_VOCAB_CAP rows (two copies of table and
+# accumulator, 5.6 GB).  The plain step sums a row's lookups with index_add_
+# (the card's atomics, in no fixed order) and the kernel in a fixed order, so
+# the two differ by rounding: held to LOSS_TOL, LOGIT_TOL and PARAM_TOL.  The
+# steps take Adagrad's eps at DCN_EPS, not the preset's 1e-8: at 1e-8 the
+# first update moves an element by about lr times its gradient's sign, and an
+# element whose gradient cancels to within rounding of zero moves by up to lr
+# on either route (1.2e-3 in one call), which compares the rounding, not the
+# kernels.  A table row moves by about 5e-6 a step at DCN_EPS, far below
+# PARAM_TOL, so the table and its accumulator are also held on their own:
+# the same rows move on both routes, and the routes' largest difference is
+# within DCN_TABLE_REL_TOL of the table's largest change over the steps (of
+# the accumulator's largest value).  The 128-wide segment-sum alone is held
+# to float64 as tests/test_torch_cuda.py holds it: each run's sum within
+# 2^-20 sqrt(max(n/16, 1)) of its sum of |g|, exact +0.0 off the run ends.
+DCN_BATCH = 16384
+DCN_VOCAB_CAP = 500_000
+DCN_STEPS = 3
+DCN_EPS = 1e-2
+DCN_TABLE_REL_TOL = 1e-3
 MICRO_BIG_BATCH = 2 * BATCH
 # The supernet (phase 5): criteo-kaggle at the search cap of 500,000 rows a
 # slot (config.SEARCH_MAX_NUM_EMBEDDINGS: 3,069,317 rows in all), space
@@ -2278,6 +2313,144 @@ def phase_dense(rows_out, sparse_step_ms: float):
     emit({"phase": "dense", "phase_s": time.perf_counter() - t_phase})
 
 
+
+def phase_dcnv2(hbm: float):
+    """Phase 3e: DLRM-DCNv2's step through the kernels against the plain
+    versions, then its two 128-wide kernels alone, timed."""
+    import dataclasses
+
+    import torch
+
+    from nasrec_tpu_torch.configs.dcnv2 import DCNV2_CRITEO1TB, LEARNING_RATE, row_share
+    from nasrec_tpu_torch.models.dcn import dcnv2_init
+    from nasrec_tpu_torch.ops.kernels import segment_sum, table_update
+    from nasrec_tpu_torch.train.optim import make_optimizer, slot_dicts
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    share = row_share(DCNV2_CRITEO1TB, 4)
+    cfg = dataclasses.replace(share, vocab_sizes=tuple(min(v, DCN_VOCAB_CAP)
+                                                       for v in share.vocab_sizes))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cols = torch.as_tensor([v for v, h in zip(cfg.vocab_sizes, cfg.bag_sizes)
+                            for _ in range(h)], device=dev, dtype=torch.float64)
+    batches = [(torch.randn(DCN_BATCH, cfg.num_dense, generator=gen, device=dev),
+                (torch.rand(DCN_BATCH, cols.numel(), generator=gen, device=dev,
+                            dtype=torch.float64) * cols).to(torch.int32),
+                (torch.rand(DCN_BATCH, 1, generator=gen, device=dev) < 0.25).float())
+               for _ in range(DCN_STEPS)]
+
+    def run(impl):
+        model = dcnv2_init(cfg, seed=0, device=dev)
+        opt = make_optimizer("adagrad", DCN_EPS)
+        state = init_sparse_train_state(model, opt)
+        step = make_sparse_embedding_train_step(
+            lambda s: LEARNING_RATE, optimizer=opt, grad_clip=None, adagrad_eps=DCN_EPS,
+            impl=impl, bag_sizes=cfg.bag_sizes)
+        reset_launches()
+        losses, times, m = run_steps(step, state, batches)
+        return model, state, losses, times, m["logits"], read_launches()
+
+    kern, plain = run("auto"), run("plain")
+    per_step = {"segment_sum128": DCN_STEPS, "table_update128": DCN_STEPS}
+    loss_diff = max(abs(a - b) for a, b in zip(kern[2], plain[2]))
+    logit_diff = (kern[4] - plain[4]).abs().max().item()
+    param_diff = state_diff(kern[0], plain[0])
+    acc_k, acc_p = slot_dicts(kern[1].opt_state)[0], slot_dicts(plain[1].opt_state)[0]
+    acc_diff = max((acc_k[k] - acc_p[k]).abs().max().item() for k in acc_k)
+    # The table and its accumulator on their own (DCN_TABLE_REL_TOL above).
+    t0 = dcnv2_init(cfg, seed=0, device=dev).embedding.table.detach()
+    t_k, t_p = kern[0].embedding.table.detach(), plain[0].embedding.table.detach()
+    moved = (t_p != t0).any(dim=1)
+    same_rows_moved = torch.equal((t_k != t0).any(dim=1), moved)
+    table_change = (t_p - t0).abs().max().item()
+    table_rel_diff = (t_k - t_p).abs().max().item() / table_change
+    a_k, a_p = acc_k["embedding.table"], acc_p["embedding.table"]
+    table_acc_rel_diff = (a_k - a_p).abs().max().item() / a_p.abs().max().item()
+    rows_moved = int(moved.sum())
+    del t0, moved
+    ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
+          and acc_diff <= PARAM_TOL and same_rows_moved and table_rel_diff <= DCN_TABLE_REL_TOL
+          and table_acc_rel_diff <= DCN_TABLE_REL_TOL and kern[5] == per_step
+          and plain[5] == {})
+
+    # The two kernels alone on the first batch's lookups and a pooled gradient.
+    emb = kern[0].embedding
+    idx = emb.fused_index(batches[0][1]).reshape(-1)
+    bag_of = emb.bag_index(DCN_BATCH)
+    g = torch.randn(DCN_BATCH * len(cfg.bag_sizes), cfg.emb_dim, generator=gen, device=dev)
+    rows, seg, is_end = segment_sum.segment_sum_bags(idx, bag_of, g)
+    p_rows, p_seg, p_end = segment_sum.segment_sum_bags(idx, bag_of, g, impl="plain")
+    seg_err = (seg - p_seg).abs().max().item()
+    unique, positions, bags = int(is_end.sum()), idx.numel(), g.shape[0]
+    width = cfg.emb_dim * 4
+    # Each run against its float64 sum (the bound above).
+    order = torch.sort(idx.long(), stable=True).indices
+    g_sorted = g.index_select(0, bag_of.index_select(0, order)).double()
+    start = torch.ones_like(is_end)
+    start[1:] = is_end[:-1]
+    run_of = start.cumsum(0) - 1
+    sums = torch.zeros(unique, cfg.emb_dim, dtype=torch.float64, device=dev)
+    sums.index_add_(0, run_of, g_sorted)
+    tol = torch.zeros_like(sums).index_add_(0, run_of, g_sorted.abs())
+    tol *= 2.0 ** -20 * (torch.bincount(run_of, minlength=unique).double() / 16).clamp(
+        min=1.0).sqrt()[:, None]
+    seg_over_bound = ((seg[is_end].double() - sums).abs() / tol.clamp(min=1e-300)).max().item()
+    off_ends = seg[~is_end]
+    seg_held = (seg_over_bound <= 1.0 and bool((off_ends == 0).all())
+                and not bool(torch.signbit(off_ends).any()))
+    del order, g_sorted, start, run_of, sums, tol, off_ends
+    table, acc = kern[0].embedding.table.data, acc_k["embedding.table"]
+    t_in, a_in = table.clone(), acc.clone()
+
+    def update(impl):
+        table.copy_(t_in)
+        acc.copy_(a_in)
+        table_update.table_update(table, acc, rows, seg, LEARNING_RATE, DCN_EPS, impl=impl)
+
+    update("plain")
+    t_plain, a_plain = table.clone(), acc.clone()
+    update("auto")
+    upd_err = max((table - t_plain).abs().max().item(), (acc - a_plain).abs().max().item())
+    del t_plain, a_plain
+    segsum_bytes = bags * width + positions * 4 + unique * width
+    update_bytes = positions * 4 + unique * (width + 4 * width)
+    timings = {
+        "segment_sum128": {
+            "ms": cuda_ms(lambda: segment_sum.segment_sum_bags(idx, bag_of, g)),
+            "plain_ms": cuda_ms(lambda: segment_sum.segment_sum_bags(idx, bag_of, g, "plain"),
+                                groups=3, per_group=3, warmup=1),
+            "bound_ms": segsum_bytes / hbm * 1e3, "max_abs_err_vs_plain": seg_err,
+            "max_err_over_float64_bound": seg_over_bound},
+        "table_update128": {
+            "ms": cuda_ms(lambda: update("auto")), "plain_ms": cuda_ms(lambda: update("plain")),
+            "copies_ms": cuda_ms(lambda: (table.copy_(t_in), acc.copy_(a_in))),
+            "bound_ms": update_bytes / hbm * 1e3, "max_abs_err_vs_plain": upd_err},
+    }
+    ok = (ok and seg_held and upd_err == 0.0 and torch.equal(rows, p_rows)
+          and torch.equal(is_end, p_end))
+    emit({"phase": "dcnv2", "batch": DCN_BATCH, "rows": int(table.shape[0]),
+          "lookups_a_step": positions, "touched_rows": unique, "steps": DCN_STEPS,
+          "losses_kernels": kern[2], "losses_plain": plain[2],
+          "step_ms_kernels": [t * 1e3 for t in kern[3]],
+          "step_ms_plain": [t * 1e3 for t in plain[3]],
+          "max_loss_diff": loss_diff, "max_logit_diff": logit_diff,
+          "max_param_diff": param_diff, "max_accumulator_diff": acc_diff,
+          "table_rows_moved": rows_moved, "same_table_rows_moved": same_rows_moved,
+          "table_diff_over_its_change": table_rel_diff,
+          "table_accumulator_diff_over_its_max": table_acc_rel_diff,
+          "launches_kernels": kern[5], "launches_plain": plain[5], "kernels": timings,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        raise SystemExit("DLRM-DCNv2's kernel step disagrees with the plain one (see the "
+                         "'dcnv2' line)")
+    del kern, plain, table, acc, t_in, a_in
+    torch.cuda.empty_cache()
+
 def phase_micro(rows_out):
     """Phase 3c: the sparse step with micro_batches = 2 against 1 from the same
     weights and batches at batch 32768 (one segment-sum and one table update a
@@ -3929,6 +4102,7 @@ def main() -> int:
         phase_data(rows_out, tmp, step_ms[XL])
         phase_dense(rows_out, step_ms[XL])
         phase_micro(rows_out)
+        phase_dcnv2(hbm_bytes_per_s(smi))
         phase_supernet(rows_out)
         phase_supernet(rows_out, "bfloat16")
         for space in ("autoctr", "xlarge"):

@@ -9,6 +9,15 @@ Example (on the card; add --device cpu to run on the CPU):
 --net supernet trains the full path of the xlarge supernet (7 blocks, LayerNorm
 on) through workloads.train_supernet, as the JAX CLI does.
 
+--net dcnv2 trains DLRM-DCNv2 (configs/dcnv2.py: MLPerf Training's
+recommender, 26 multi-hot bags of 128-wide rows, 3 low-rank cross layers)
+through workloads.train_dcnv2 on --data_source synthetic multi-hot batches,
+each slot's table min(its published rows, --synthetic_vocab) rows, with the
+preset's optimiser (Adagrad at 0.005, constant, eps 1e-8, no clip) in place
+of --learning_rate, --lr_schedule and the clip; one process:
+  python -m nasrec_tpu_torch.cli.main_train --net dcnv2 --data_source synthetic \
+      --train_batch_size 16384 --test_batch_size 16384 --max_train_steps 50
+
 Several processes (one per card, or on the CPU with --device cpu and gloo):
 every process runs the same command with --num_processes N --process_id i
 --coordinator_address host:port and --mesh_model M (the table row-sharded
@@ -22,6 +31,7 @@ over M ranks, the batch over N / M); e.g. two processes on the CPU:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from nasrec_tpu_torch.choices import load_choice_file
 from nasrec_tpu_torch.cli.common import (
@@ -42,7 +52,7 @@ def build_parser():
     add_train_args(p, lr=0.16)
     add_distributed_args(p)
     p.add_argument("--net", default="supernet-config",
-                   choices=["supernet", "supernet-config"])
+                   choices=["supernet", "supernet-config", "dcnv2"])
     p.add_argument("--supernet_config", default=None,
                    help="Path to a best-arch choice JSON (reference schema)")
     p.add_argument("--arch", default=None,
@@ -61,8 +71,20 @@ def main(argv=None):
 
 
 def _run(args):
-    from nasrec_tpu_torch.workloads import SupernetOptions, train_fixed_subnet, train_supernet
+    from nasrec_tpu_torch.workloads import (
+        SupernetOptions,
+        train_dcnv2,
+        train_fixed_subnet,
+        train_supernet,
+    )
 
+    if args.net == "dcnv2":
+        from nasrec_tpu_torch.configs import dcnv2
+
+        train = dataclasses.replace(
+            train_options(args), learning_rate=dcnv2.LEARNING_RATE,
+            lr_schedule="constant-no-warmup", grad_clip=None, adagrad_eps=dcnv2.ADAGRAD_EPS)
+        return train_dcnv2(dcnv2.DCNV2_CRITEO1TB, data_options(args), train)
     if args.net == "supernet":
         # Train the full supernet path (ref: main_train.py:244-254).
         return train_supernet(

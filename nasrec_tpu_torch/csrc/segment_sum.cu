@@ -11,8 +11,8 @@
 //
 //   rows   [C, B] int32, each column sorted (torch.sort, stable);
 //   order  [C, B] int64, the batch row each sorted position came from;
-//   g      [B, C, 16] f32, the stem gradient in (b, c) row-major order;
-//   seg    [C*B, 16] f32: at the last position of each run of equal rows of a
+//   g      [B, C, E] f32, the stem gradient in (b, c) row-major order;
+//   seg    [C*B, E] f32: at the last position of each run of equal rows of a
 //          column the run's sum of g[order[c, j], c, :], exact 0.0f at every
 //          other position (the table update skips an all-zero position, so
 //          the positions of a duplicate row never race);
@@ -46,6 +46,26 @@
 // Every sum is f32, in an order fixed by the shapes alone (no float atomics,
 // no look-back between blocks), so two launches on the same inputs give the
 // same bits.
+//
+// Width.  E = 16 (NASRec's tables; `segsum_tile_kernel`, `segsum_carry_kernel`)
+// or E = 128 (DLRM-DCNv2's; `segsum_tile128_kernel`, `segsum_walk128_kernel`):
+// one templated tile pass, E/4 threads a position.  At E = 128 a warp is one
+// position (its 512-byte row one float4 a lane), a group walks 8 positions
+// and a tile is 64 positions.  A multi-hot bag step passes one column, C = 1,
+// of all its B*H lookups sorted at once (each slot's rows lie above the last
+// slot's, so a global sort keeps the slots apart), with `order` already mapped
+// to the bag whose pooled gradient each lookup takes: g is then the pooled
+// gradient [bags, 128] and nothing of size [B*H, 128] is gathered first.  Such
+// a column spans tens of thousands of tiles, too many for the carry pass's
+// one walk a column, so at E = 128 the carries are found by a walk a tile
+// instead: each tile whose first run end closes a run begun in an earlier
+// tile (one warp each) looks back, 32 tile records at a time, for the tile
+// that run began in, then sums those tiles' partials forward, in the carry
+// pass's order; the work is the tiles the runs span, in parallel over runs.
+// At [16384 x 214 lookups] the bound is the pooled gradient read once
+// (218 MB), the indices (14 MB) and a summed row written for each of the
+// 2.55 M rows touched (1.3 GB): 0.46 ms at 3.35 TB/s; the kernel reads g
+// at every lookup and writes seg at every position, zeros included.
 
 #include <climits>
 
@@ -54,13 +74,16 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 4;                    // threads a position, a float4 each
-constexpr int kItems = 4;                    // consecutive positions a group of kLanes
-constexpr int kTile = kThreads / kLanes * kItems;   // positions a block
 constexpr int kWarps = kThreads / 32;
-constexpr int kEmb = 16;
-constexpr int kChunk = 256;                  // tile records the carry pass stages at once
-static_assert(kTile == kThreads, "is_end is written one position a thread");
+
+// The tile pass's shape at width kEmb.
+template <int kEmb>
+struct TileShape {
+  static constexpr int kLanes = kEmb / 4;                  // threads a position, a float4 each
+  static constexpr int kItems = kEmb == 16 ? 4 : 8;        // consecutive positions a group
+  static constexpr int kTile = kThreads / kLanes * kItems; // positions a block
+  static constexpr int kChunk = 4096 / kEmb;               // tile records the carry pass stages
+};
 
 // A run-segmented partial sum of a range of positions: `v` sums the positions
 // from the range's last run start (its first position if none) to its end;
@@ -89,11 +112,17 @@ __device__ __forceinline__ Part shfl_up(const Part& p, int d) {
   return o;
 }
 
-__global__ void __launch_bounds__(kThreads)
-segsum_tile_kernel(const int* __restrict__ rows, const long long* __restrict__ order,
-                   const float* __restrict__ g, float* __restrict__ seg,
-                   unsigned char* __restrict__ is_end, float* __restrict__ tail,
-                   int* __restrict__ info, long long b, int cols, int tiles) {
+template <int kEmb>
+__device__ __forceinline__ void segsum_tile(const int* __restrict__ rows,
+                                            const long long* __restrict__ order,
+                                            const float* __restrict__ g, float* __restrict__ seg,
+                                            unsigned char* __restrict__ is_end,
+                                            float* __restrict__ tail, int* __restrict__ info,
+                                            long long b, int cols, int tiles) {
+  constexpr int kLanes = TileShape<kEmb>::kLanes;
+  constexpr int kItems = TileShape<kEmb>::kItems;
+  constexpr int kTile = TileShape<kEmb>::kTile;
+  static_assert(kTile <= kThreads, "is_end and order are staged one position a thread");
   __shared__ int s_rows[kTile + 2];          // rows[j0 - 1 .. j0 + kTile]
   __shared__ long long s_order[kTile];
   __shared__ float4 s_warp[kWarps][kLanes];  // each warp's inclusive partial
@@ -110,18 +139,20 @@ segsum_tile_kernel(const int* __restrict__ rows, const long long* __restrict__ o
     const long long j = j0 - 1 + i;
     s_rows[i] = (j >= 0 && j < b) ? rows[base + j] : 0;
   }
-  s_order[tid] = j0 + tid < b ? order[base + j0 + tid] : 0;
+  // (At kEmb = 16 a tile is one position a thread and the test folds away.)
+  if (kTile == kThreads || tid < kTile)
+    s_order[tid] = j0 + tid < b ? order[base + j0 + tid] : 0;
   if (tid == 0) s_first_end = INT_MAX;
   __syncthreads();
 
-  if (j0 + tid < b) {                        // run ends, one position a thread
+  if ((kTile == kThreads || tid < kTile) && j0 + tid < b) {   // run ends, a position a thread
     const bool end = j0 + tid == b - 1 || s_rows[tid + 1] != s_rows[tid + 2];
     is_end[base + j0 + tid] = end;
     if (end) atomicMin(&s_first_end, tid);
   }
 
   const int lane = tid & 31, warp = tid >> 5;
-  const int q = tid & (kLanes - 1);          // which float4 of the 16 floats
+  const int q = tid & (kLanes - 1);          // which float4 of the kEmb floats
   const int first = tid / kLanes * kItems;   // the group's first position in the tile
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float4* g4 = reinterpret_cast<const float4*>(g);
@@ -144,14 +175,15 @@ segsum_tile_kernel(const int* __restrict__ rows, const long long* __restrict__ o
   for (int i = 1; i < kItems; ++i)
     if (in[i]) agg = st[i] ? Part{v[i], true} : Part{add4(agg.v, v[i]), agg.start};
 
-  // Inclusive scan over the warp's 8 groups, then each warp's total.
+  // Inclusive scan over the warp's groups (none at kEmb = 128: a warp is one
+  // group), then each warp's total.
   Part inc = agg;
 #pragma unroll
   for (int d = kLanes; d < 32; d <<= 1) {
     const Part o = shfl_up(inc, d);
     if (lane >= d) inc = combine(o, inc);
   }
-  const Part before = shfl_up(inc, kLanes);  // the warp's earlier groups
+  const Part before = shfl_up(inc, kLanes & 31);  // the warp's earlier groups
   if (lane >= 32 - kLanes) {
     s_warp[warp][q] = inc.v;
     if (q == 0) s_warp_start[warp] = inc.start;
@@ -190,8 +222,28 @@ segsum_tile_kernel(const int* __restrict__ rows, const long long* __restrict__ o
 }
 
 __global__ void __launch_bounds__(kThreads)
+segsum_tile_kernel(const int* __restrict__ rows, const long long* __restrict__ order,
+                   const float* __restrict__ g, float* __restrict__ seg,
+                   unsigned char* __restrict__ is_end, float* __restrict__ tail,
+                   int* __restrict__ info, long long b, int cols, int tiles) {
+  segsum_tile<16>(rows, order, g, seg, is_end, tail, info, b, cols, tiles);
+}
+
+__global__ void __launch_bounds__(kThreads)
+segsum_tile128_kernel(const int* __restrict__ rows, const long long* __restrict__ order,
+                      const float* __restrict__ g, float* __restrict__ seg,
+                      unsigned char* __restrict__ is_end, float* __restrict__ tail,
+                      int* __restrict__ info, long long b, int cols, int tiles) {
+  segsum_tile<128>(rows, order, g, seg, is_end, tail, info, b, cols, tiles);
+}
+
+// E = 16: one block a column walks the column's tile records in order.
+__global__ void __launch_bounds__(kThreads)
 segsum_carry_kernel(const float* __restrict__ tail, const int* __restrict__ info,
                     float* __restrict__ seg, long long b, int tiles) {
+  constexpr int kEmb = 16;
+  constexpr int kTile = TileShape<kEmb>::kTile;
+  constexpr int kChunk = TileShape<kEmb>::kChunk;
   __shared__ float s_tail[kChunk][kEmb];
   __shared__ float s_carry[kChunk][kEmb];
   __shared__ int s_info[kChunk][2];
@@ -225,11 +277,50 @@ segsum_carry_kernel(const float* __restrict__ tail, const int* __restrict__ info
   }
 }
 
+// E = 128: one warp a tile record.  A tile whose first run end closes a run
+// begun in an earlier tile finds that tile (the nearest earlier one with a run
+// start: tile 0 always has one), then adds the partials of the tiles from it
+// to its own predecessor, in order, to its first run end: the same sums in the
+// same order as segsum_carry_kernel's walk.
+__global__ void __launch_bounds__(kThreads)
+segsum_walk128_kernel(const float* __restrict__ tail, const int* __restrict__ info,
+                      float* __restrict__ seg, long long b, int cols, int tiles) {
+  constexpr int kLanes = TileShape<128>::kLanes;
+  constexpr int kTile = TileShape<128>::kTile;
+  const long long rec = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (rec >= static_cast<long long>(cols) * tiles) return;
+  const int lane = threadIdx.x & 31;
+  const int col = static_cast<int>(rec / tiles);
+  const int tile = static_cast<int>(rec - static_cast<long long>(col) * tiles);
+  const int end = info[2 * rec + 1];
+  if (!(info[2 * rec] & 2) || end < 0) return;
+  const long long rec0 = static_cast<long long>(col) * tiles;   // the column's tile 0
+  int s = tile - 1;
+  for (;;) {
+    const int t = s - lane;
+    const bool started = t >= 0 && (info[2 * (rec0 + t)] & 1);
+    const unsigned found = __ballot_sync(0xffffffffu, started);
+    if (found) {
+      s -= __ffs(found) - 1;
+      break;
+    }
+    s -= 32;
+  }
+  const float4* tail4 = reinterpret_cast<const float4*>(tail);
+  float4 carry = tail4[(rec0 + s) * kLanes + lane];
+  for (int t = s + 1; t < tile; ++t) carry = add4(carry, tail4[(rec0 + t) * kLanes + lane]);
+  float4* at = reinterpret_cast<float4*>(seg)
+               + (static_cast<long long>(col) * b + static_cast<long long>(tile) * kTile + end)
+                     * kLanes + lane;
+  *at = add4(*at, carry);
+}
+
 }  // namespace
 
 extern "C" int nasrec_segment_sum(const int* rows, const long long* order, const float* g,
                                   float* seg, unsigned char* is_end, float* tail, int* info,
                                   long long b, int cols, void* stream) {
+  constexpr int kTile = TileShape<16>::kTile;
   if (b == 0 || cols == 0) return 0;
   const long long tiles = (b + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -238,5 +329,22 @@ extern "C" int nasrec_segment_sum(const int* rows, const long long* order, const
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);
   segsum_carry_kernel<<<cols, kThreads, 0, s>>>(tail, info, seg, b, static_cast<int>(tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nasrec_segment_sum128(const int* rows, const long long* order, const float* g,
+                                     float* seg, unsigned char* is_end, float* tail, int* info,
+                                     long long b, int cols, void* stream) {
+  constexpr int kTile = TileShape<128>::kTile;
+  if (b == 0 || cols == 0) return 0;
+  const long long tiles = (b + kTile - 1) / kTile;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  segsum_tile128_kernel<<<static_cast<unsigned>(tiles * cols), kThreads, 0, s>>>(
+      rows, order, g, seg, is_end, tail, info, b, cols, static_cast<int>(tiles));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);
+  const long long walkers = (tiles * cols + kWarps - 1) / kWarps;
+  segsum_walk128_kernel<<<static_cast<unsigned>(walkers), kThreads, 0, s>>>(
+      tail, info, seg, b, cols, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,7 @@ model over the dense features plus per-slot categorical effects.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,40 @@ def synthetic_batches(
     while True:
         for i in range(0, n - batch_size + 1, batch_size):
             yield dense[i : i + batch_size], cat[i : i + batch_size], y[i : i + batch_size]
+        if not loop:
+            return
+
+
+def multihot_arrays(n: int, vocab_sizes: Sequence[int], bag_sizes: Sequence[int],
+                    num_dense: int = 13, seed: int = 0,
+                    signal_scale: float = 2.0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(dense f32 [N, D] ~ N(0, 1), ids i32 [N, H], label f32 [N, 1]) for a
+    multi-hot model (models/dcn.py): slot s's bag is bag_sizes[s] ids, each
+    uniform over its vocab_sizes[s] rows and drawn independently, in columns
+    [sum(bag_sizes[:s]), sum(bag_sizes[:s + 1])).  The label is Bernoulli of a
+    logistic model of the dense features (the planted weights depend only on
+    num_dense), so that training has a signal to find."""
+    w = np.random.RandomState(1234).randn(num_dense).astype(np.float32) / np.sqrt(num_dense)
+    rng = np.random.RandomState(seed)
+    dense = rng.randn(n, num_dense).astype(np.float32)
+    vocab = np.repeat(np.asarray(vocab_sizes, np.int64), np.asarray(bag_sizes))
+    ids = (rng.random_sample((n, vocab.size)) * vocab).astype(np.int32)
+    p = 1.0 / (1.0 + np.exp(-signal_scale * (dense @ w)))
+    y = (rng.random_sample(n) < p).astype(np.float32)[:, None]
+    return dense, ids, y
+
+
+def multihot_batches(n: int, batch_size: int, vocab_sizes: Sequence[int],
+                     bag_sizes: Sequence[int], num_dense: int = 13, seed: int = 0,
+                     loop: bool = False, device: str | torch.device = "cpu"):
+    """Yield (dense [B, D], ids [B, H], label [B, 1]) tensors of
+    `multihot_arrays` on `device`.  The whole split is moved once; batches
+    are views of it."""
+    arrays = [torch.from_numpy(a).to(device)
+              for a in multihot_arrays(n, vocab_sizes, bag_sizes, num_dense, seed)]
+    while True:
+        for i in range(0, n - batch_size + 1, batch_size):
+            yield tuple(a[i:i + batch_size] for a in arrays)
         if not loop:
             return
 

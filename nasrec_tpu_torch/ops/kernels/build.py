@@ -53,6 +53,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "table_update": {
         "nasrec_table_update": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
                                 _c_float, _c_float, _c_ptr),
+        "nasrec_table_update128": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
+                                   _c_float, _c_float, _c_ptr, _c_ptr),
     },
     "attention": {
         "nasrec_attn_fwd": (_c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_ptr),
@@ -68,6 +70,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "segment_sum": {
         "nasrec_segment_sum": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll,
                                _c_int, _c_ptr),
+        "nasrec_segment_sum128": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                                  _c_ll, _c_int, _c_ptr),
     },
 }
 

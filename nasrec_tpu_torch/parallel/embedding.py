@@ -1,7 +1,7 @@
 """Row-sharded embedding table over the mesh's model ranks (port of
 `nasrec_tpu/parallel/embedding.py`).
 
-The fused [total_vocab, 16] table is padded to a multiple of the model size
+The fused [total_vocab, E] table is padded to a multiple of the model size
 and split into equal row ranges; model rank m holds rows
 [m * rows_local, (m + 1) * rows_local).  A lookup is, on each rank:
 

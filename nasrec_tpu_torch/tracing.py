@@ -11,7 +11,10 @@ that a trace exported from the profiler (`--profile_dir`) shows the phases.
 end as well, so that the phase's device time is known without matching
 launches (`Span.device_ms`).  `count(name, n)` adds `n` to the calling
 thread's innermost open span, so that a span's own counts are recorded with
-it (`Span.counts`); outside any span it does nothing.
+it (`Span.counts`); outside any span it does nothing.  `device_counter(name,
+device)` hands a kernel a counter on the device to add to, so that a count
+that only the device knows costs the step no pass and no synchronisation;
+`device_counts()` reads them all, once the profiled work is done.
 
 The recorder is on exactly while `torch.autograd.profiler._is_profiler_enabled`
 is set: torch sets that module global when any profiler of the process
@@ -19,12 +22,13 @@ starts and clears it when the profiler stops, and every thread reads the
 same value, the prefetch thread that parses included (whereas
 `torch.autograd._profiler_enabled()` reads the calling thread's profiler
 state, False in a thread that the profiler does not follow).  Otherwise
-`span` returns a null context after one flag test and `count` does nothing.
+`span` returns a null context after one flag test, `count` does nothing and
+`device_counter` returns None.
 
 Spans stay in memory, in the order they closed: `spans()`, and `clear()`
-to drop them.  A span opened inside a generator is closed before
-the generator yields, so that a thread's stack never holds another frame's
-phase.
+to drop them and the device counters.  A span opened inside a generator is
+closed before the generator yields, so that a thread's stack never holds
+another frame's phase.
 """
 
 from __future__ import annotations
@@ -33,12 +37,13 @@ import collections
 import contextlib
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.autograd import profiler as _profiler
 
 _SPANS: List["Span"] = []
+_DEVICE_COUNTERS: Dict[tuple, torch.Tensor] = {}
 _NULL = contextlib.nullcontext()
 _local = threading.local()
 
@@ -121,9 +126,29 @@ def count(name: str, n: int = 1) -> None:
         top.counts[name] += n
 
 
+def device_counter(name: str, device) -> Optional[torch.Tensor]:
+    """While a profiler runs, the counter `name` on `device`: one int64,
+    zero when first asked for, that kernels add to; None otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    key = (name, torch.device(device))
+    if key not in _DEVICE_COUNTERS:
+        _DEVICE_COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _DEVICE_COUNTERS[key]
+
+
+def device_counts() -> Dict[str, int]:
+    """Each device counter's total over its devices (waits for the device)."""
+    out: Dict[str, int] = collections.Counter()
+    for (name, _), t in _DEVICE_COUNTERS.items():
+        out[name] += int(t.item())
+    return dict(out)
+
+
 def spans() -> List[Span]:
     return list(_SPANS)
 
 
 def clear() -> None:
     _SPANS.clear()
+    _DEVICE_COUNTERS.clear()

@@ -26,6 +26,7 @@ float; the step counter lives on the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
@@ -104,8 +105,8 @@ class Optimizer:
     update_: Callable[..., None]
 
 
-def _adagrad(state, names, params, grads, lr):
-    adagrad_update_(params, [state[n] for n in names], grads, lr)
+def _adagrad(state, names, params, grads, lr, eps=1e-2):
+    adagrad_update_(params, [state[n] for n in names], grads, lr, eps)
 
 
 def _sgd(state, names, params, grads, lr):
@@ -118,9 +119,10 @@ def _adam(state, names, params, grads, lr):
                  grads, lr, int(state.count))
 
 
-def make_optimizer(name: str) -> Optimizer:
+def make_optimizer(name: str, adagrad_eps: float = 1e-2) -> Optimizer:
+    """`adagrad_eps` is Adagrad's eps (the reference's 1e-2 by default)."""
     if name == "adagrad":
-        return Optimizer(adagrad_init, _adagrad)
+        return Optimizer(adagrad_init, functools.partial(_adagrad, eps=adagrad_eps))
     if name == "sgd":
         return Optimizer(sgd_init, _sgd)
     if name == "adam":

@@ -11,7 +11,16 @@ updates only the touched rows of the table and its Adagrad accumulator:
 
 which is torch's dense Adagrad exactly, global-norm clip included (the
 clip sees each row's summed gradient once).  On the card the update is the
-hand-written kernel of ops/kernels/table_update.py.
+hand-written kernel of ops/kernels/table_update.py.  The table is
+[vocab, E] with E = 16 (NASRec's models) or 128 (DLRM-DCNv2's), the widths
+the kernels are built for.
+
+With multi-hot `bag_sizes` (models/dcn.py) the stem is the sum-pooled bags
+[B, S*E] (`EmbeddingStem.pool`), and each lookup's gradient is its bag's
+pooled gradient: the segment-sum reads it through the lookup-to-bag map,
+over all B*H lookups of the step (`segment_sum_bags`).  One-hot (every bag
+size 1, or none given) keeps the slotwise gather and segment-sum; which of
+the two a step runs is decided when it is built.
 
 With `has_masks=True` (the supernet) the step takes the choice's masks as a
 `ChoiceMasks` of device tensors or as the `(buffer, idx)` pair that
@@ -23,12 +32,12 @@ and a frozen table is neither differentiated nor updated.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
 from nasrec_tpu_torch import tracing
-from nasrec_tpu_torch.ops.kernels.segment_sum import segment_sum
+from nasrec_tpu_torch.ops.kernels.segment_sum import segment_sum, segment_sum_bags
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
 from nasrec_tpu_torch.parallel.embedding import sharded_lookup
 from nasrec_tpu_torch.parallel.mesh import Mesh
@@ -66,11 +75,12 @@ def rowwise_segment_sum_slotwise(idx2d: torch.Tensor, g: torch.Tensor, impl: str
 
 
 def sparse_adagrad_table_update(table, acc, rows, seg, lr: float, eps: float = 1e-2,
-                                row_offset: int = 0, impl: str = "auto"):
-    """Touched-row Adagrad on the [vocab, 16] table, in place (the kernel on
-    the card; its plain version on the CPU or by name)."""
+                                row_offset: int = 0, impl: str = "auto", written=None):
+    """Touched-row Adagrad on the [vocab, E] table (E = 16 or 128), in place
+    (the kernel on the card; its plain version on the CPU or by name); the
+    rows it writes are added to `written` where one is given."""
     return table_update(table, acc, rows.to(torch.int32).contiguous(),
-                        seg.contiguous(), lr, eps, row_offset, impl)
+                        seg.contiguous(), lr, eps, row_offset, impl, written)
 
 
 def init_sparse_train_state(model: torch.nn.Module,
@@ -103,6 +113,7 @@ def make_sparse_embedding_train_step(
     compute_dtype: torch.dtype = torch.float32,
     table_impl: Optional[str] = None,
     mesh: Optional[Mesh] = None,
+    bag_sizes: Optional[Sequence[int]] = None,
 ):
     """step(state, dense, cat, y[, masks]) -> (state, metrics), updating in place.
 
@@ -137,10 +148,20 @@ def make_sparse_embedding_train_step(
     that one segment-sum and one clip see the whole batch, the same on every
     rank; and each model rank updates the rows it owns through the kernel's
     `row_offset`, skipping the other shards' positions.  Without one (or on
-    a 1 x 1 mesh) every collective is the identity."""
+    a 1 x 1 mesh) every collective is the identity.
+
+    `bag_sizes` (one a slot) are the model's multi-hot bags
+    (`model.embedding.bag_sizes`; DLRM-DCNv2): `cat` is then [B, H] ids,
+    the stem the pooled bags, and the segment-sum runs over the B*H lookups.
+    Bags run on one device only: a mesh of more than one rank raises."""
     optimizer = optimizer or make_optimizer("adagrad")
     table_impl = impl if table_impl is None else table_impl
     mesh = mesh or Mesh(1, 1)
+    bags = tuple(int(h) for h in bag_sizes) if bag_sizes is not None else None
+    bagged = bags is not None and any(h != 1 for h in bags)
+    if bagged and mesh.data * mesh.model > 1:
+        raise ValueError(f"multi-hot bags run on one device; got a {mesh.data} x "
+                         f"{mesh.model} mesh (row-sharding bags over ranks is not ported)")
 
     def step(state: TrainState, dense, cat, y, masks=None):
         with tracing.span("train.step"):
@@ -155,13 +176,21 @@ def make_sparse_embedding_train_step(
         train_table = trainable is None or trainable[TABLE]
         idx = model.embedding.fused_index(cat)                       # [B, S] int32
         b = idx.shape[0]
+        if bagged and model.embedding.bag_sizes != bags:
+            raise ValueError(f"the step was built for bags {bags}, the model has "
+                             f"{model.embedding.bag_sizes}")
         if b % microbatch:
             raise ValueError(f"batch {b} not divisible by microbatch {microbatch}")
         rows_per = b // microbatch
 
         def forward_backward(sl):
             with torch.no_grad():
-                looked = sharded_lookup(table, idx[sl], mesh)        # [b, S*E]
+                if bagged:
+                    with tracing.span("train.lookup", device=True):
+                        tracing.count("train.bag_positions", idx[sl].numel())
+                        looked = model.embedding.pool(table, idx[sl])    # [b, S*E]
+                else:
+                    looked = sharded_lookup(table, idx[sl], mesh)        # [b, S*E]
             stem = looked.requires_grad_(train_table)
             logits = forward_embedded(model, dense[sl], stem, masks, impl, compute_dtype,
                                       has_masks)
@@ -202,9 +231,14 @@ def make_sparse_embedding_train_step(
                     d_all = d_stem[0]
                     if mesh.data > 1:
                         d_all = mesh.gather_over_data(d_all / mesh.data)
-                    rows, seg, _ = rowwise_segment_sum_slotwise(
-                        mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]),
-                        table_impl)
+                    if bagged:
+                        rows, seg, _ = segment_sum_bags(
+                            idx.reshape(-1), model.embedding.bag_index(b),
+                            d_all.reshape(-1, table.shape[1]), table_impl)
+                    else:
+                        rows, seg, _ = rowwise_segment_sum_slotwise(
+                            mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]),
+                            table_impl)
             if grad_clip is not None:
                 with tracing.span("train.clip"):
                     sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
@@ -221,11 +255,16 @@ def make_sparse_embedding_train_step(
                 optimizer.update_(state.opt_state, [n for n, _ in rest],
                                   [p for _, p in rest], g_rest, lr)
             if train_table:
-                with tracing.span("train.table_update"):
+                with tracing.span("train.table_update", device=True):
+                    # On the bag path, while a profiler runs, the update counts
+                    # the rows it writes: it skips a row whose summed gradient
+                    # is zero.
+                    written = (tracing.device_counter("train.rows_updated", table.device)
+                               if bagged else None)
                     sparse_adagrad_table_update(table.data, table_accumulator(state.opt_state),
                                                 rows, seg, lr, adagrad_eps,
                                                 row_offset=mesh.model_index * table.shape[0],
-                                                impl=table_impl)
+                                                impl=table_impl, written=written)
             if mesh.data > 1:
                 bce = bce.clone()
                 mesh.mean_over_data_([bce])

@@ -1,6 +1,7 @@
 """The four workloads as library functions (port of `nasrec_tpu/workloads.py`):
 fixed-subnet training, supernet training, the weight-shared search over a
-trained supernet, and the subnet-from-scratch evaluation.
+trained supernet, and the subnet-from-scratch evaluation; and, beside them,
+DLRM-DCNv2's training on synthetic multi-hot batches (`train_dcnv2`).
 
 Ported: data from TSV shards (the C++ parser, a prefetch thread and a copy to
 the card on a side stream, data/pipeline.py) or synthetic; the
@@ -46,8 +47,9 @@ from nasrec_tpu_torch import profiling
 from nasrec_tpu_torch.choices import Choice, choice_to_masks, full_path_choice
 from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB
 from nasrec_tpu_torch.data.pipeline import device_prefetch, make_dataset_iterators
-from nasrec_tpu_torch.data.synthetic import SyntheticSpec, synthetic_batches
+from nasrec_tpu_torch.data.synthetic import SyntheticSpec, multihot_batches, synthetic_batches
 from nasrec_tpu_torch.device import resolve_device
+from nasrec_tpu_torch.models.dcn import DCNv2Config, dcnv2_init
 from nasrec_tpu_torch.models.embedding import load_embedding_from_checkpoint, table_offsets
 from nasrec_tpu_torch.models.fixed import build_fixed_plan, fixed_apply, fixed_init
 from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
@@ -127,7 +129,8 @@ class TrainOptions:
     max_train_steps: int = -1
     max_eval_steps: int = -1
     test_only_at_last_step: bool = False
-    grad_clip: float = 5.0
+    grad_clip: Optional[float] = 5.0  # None: no clip
+    adagrad_eps: float = 1e-2         # Adagrad's eps, dense and table alike
     no_reg_param_name: Optional[str] = None
     activation: str = "relu"
     seed: int = 0
@@ -393,11 +396,13 @@ def _make_iterators(data: DataOptions, device):
             lambda: device_prefetch(host_test(), device))
 
 
-def _make_steps(train: TrainOptions, sched, mesh=None, has_masks: bool = False):
+def _make_steps(train: TrainOptions, sched, mesh=None, has_masks: bool = False,
+                bag_sizes=None):
     """(optimizer, train step, eval step): the sparse-embedding step or the
     dense-gradient step, by `_use_sparse_embedding`, on one device or over
-    the mesh, with its fresh state's optimizer."""
-    opt = make_optimizer(train.optimizer)
+    the mesh, with its fresh state's optimizer.  `bag_sizes`: a multi-hot
+    model's bags (the sparse step only)."""
+    opt = make_optimizer(train.optimizer, train.adagrad_eps)
     impl, cdt = _model_impl(train.attention_impl), _compute_dtype(train)
     common = dict(grad_clip=train.grad_clip, l2_reg=train.wd,
                   l2_exclude=train.no_reg_param_name, compute_dtype=cdt, impl=impl,
@@ -406,7 +411,8 @@ def _make_steps(train: TrainOptions, sched, mesh=None, has_masks: bool = False):
         # attention_impl picks the nodes' impl; the table update, as in the
         # JAX package, is not switched by it.
         step = make_sparse_embedding_train_step(
-            sched, optimizer=opt, microbatch=train.micro_batches, table_impl="auto", **common)
+            sched, optimizer=opt, microbatch=train.micro_batches, table_impl="auto",
+            adagrad_eps=train.adagrad_eps, bag_sizes=bag_sizes, **common)
     else:
         step = make_train_step(opt, sched, **common)
     if mesh is not None:
@@ -431,16 +437,19 @@ def _init_state(model, opt, train: TrainOptions):
     return init_train_state(model, opt)
 
 
-def _report_model_stats(model, spec, log_fn, logging_dir: Optional[str] = None) -> None:
+def _report_model_stats(model, num_dense: int, log_fn,
+                        logging_dir: Optional[str] = None) -> None:
     """Parameters and forward FLOPs an example (`profiling.count_flops` of
     the plain forward at batch 1: the matmul FLOPs, which the kernels count
     alike), in the JAX package's format.  With a logging_dir, also the
     model's graph as text in `model_graph/`: the module tree and each
     parameter's shape and dtype (the JAX package writes the forward's
-    StableHLO and jaxpr there).  A failed dump prints and the run goes on."""
+    StableHLO and jaxpr there).  A failed dump prints and the run goes on.
+    `model` is a fixed subnet or DLRM-DCNv2 (its ids a row: the stem's
+    `columns`)."""
     dev = model.final.weight.device
-    dense = torch.zeros((1, spec.num_dense), dtype=torch.float32, device=dev)
-    cat = torch.zeros((1, spec.num_sparse), dtype=torch.int32, device=dev)
+    dense = torch.zeros((1, num_dense), dtype=torch.float32, device=dev)
+    cat = torch.zeros((1, model.embedding.columns), dtype=torch.int32, device=dev)
     with torch.no_grad():
         flops = profiling.count_flops(lambda m, d, c: fixed_apply(m, d, c, impl="plain"),
                                       model, dense, cat)
@@ -501,6 +510,34 @@ class _MaybeProfile:
         return False
 
 
+def _train_epochs(step, eval_step, state, train_iter, test_iter, data: DataOptions,
+                  train: TrainOptions, steps_per_epoch: int, log_fn, fetch=None):
+    """`train.num_epochs` epochs of `train_and_test_one_epoch`, writing
+    metrics.jsonl (rank 0) and a profiler trace with a profile_dir ->
+    (state, epoch logs, best params)."""
+    writer = MetricsWriter(_chief_dir(train.logging_dir))
+    epoch_logs, best = [], None
+    with _MaybeProfile(_chief_dir(train.profile_dir)):
+        for epoch in range(train.num_epochs):
+            state, logs, best_ep = train_and_test_one_epoch(
+                step, eval_step, state, train_iter(), test_iter,
+                epoch=epoch,
+                display_interval=train.display_interval,
+                test_interval=train.test_interval,
+                max_train_steps=steps_per_epoch,
+                max_eval_steps=_max_eval_steps(data, train),
+                test_only_at_last_step=train.test_only_at_last_step,
+                log_fn=log_fn,
+                metrics_writer=writer,
+                fetch=fetch,
+            )
+            epoch_logs.append(logs)
+            if best_ep is not None:
+                best = best_ep
+    writer.close()
+    return state, epoch_logs, best
+
+
 def train_fixed_subnet(
     choice_payload: Dict[str, Any],
     data: DataOptions = DataOptions(),
@@ -538,7 +575,7 @@ def train_fixed_subnet(
         raise ValueError("table_update='sweep' requires the sparse-embedding path "
                          "(adagrad, wd=0 or sparse_embedding=True)")
     if train.report_flops:      # of the whole model, before the table moves
-        _report_model_stats(model, spec, log_fn, logging_dir=train.logging_dir)
+        _report_model_stats(model, spec.num_dense, log_fn, logging_dir=train.logging_dir)
     mesh, host_emb, fetch = None, None, None
     if train.mesh_model > 0:
         mesh = make_mesh(model=train.mesh_model)
@@ -557,26 +594,8 @@ def train_fixed_subnet(
         train_iter, test_iter = _globalize_iterators(
             mesh, train_iter, test_iter, slice_local=data.data_source == "synthetic")
 
-    writer = MetricsWriter(_chief_dir(train.logging_dir))
-    epoch_logs, best = [], None
-    with _MaybeProfile(_chief_dir(train.profile_dir)):
-        for epoch in range(train.num_epochs):
-            state, logs, best_ep = train_and_test_one_epoch(
-                step, eval_step, state, train_iter(), test_iter,
-                epoch=epoch,
-                display_interval=train.display_interval,
-                test_interval=train.test_interval,
-                max_train_steps=steps_per_epoch,
-                max_eval_steps=_max_eval_steps(data, train),
-                test_only_at_last_step=train.test_only_at_last_step,
-                log_fn=log_fn,
-                metrics_writer=writer,
-                fetch=fetch,
-            )
-            epoch_logs.append(logs)
-            if best_ep is not None:
-                best = best_ep
-    writer.close()
+    state, epoch_logs, best = _train_epochs(step, eval_step, state, train_iter, test_iter,
+                                            data, train, steps_per_epoch, log_fn, fetch)
 
     params, _ = _saved_state(state, int(sum(vocab)), mesh, host_emb, with_opt=False)
     _dump_logs(train.logging_dir, epoch_logs,
@@ -586,6 +605,61 @@ def train_fixed_subnet(
                ckpt_backend=train.ckpt_backend)
     return {"state": state, "logs": epoch_logs, "best_params": best, "plan": plan,
             "host_embedding": host_emb}
+
+
+def train_dcnv2(
+    config: DCNv2Config,
+    data: DataOptions = DataOptions(data_source="synthetic"),
+    train: TrainOptions = TrainOptions(),
+    log_fn: Callable[[str], None] = print,
+) -> Dict[str, Any]:
+    """Train DLRM-DCNv2 (models/dcn.py) on synthetic multi-hot batches
+    through the sparse-embedding step, on one device.  Each slot's table
+    holds min(its rows, data.synthetic_vocab) rows; every width is
+    `config`'s.  Criteo 1TB's own files are not read, and the table is not
+    sharded over processes (refused)."""
+    _validate(data, train)
+    if data.data_source != "synthetic":
+        raise ValueError("DLRM-DCNv2 trains on synthetic multi-hot batches "
+                         "(data_source='synthetic'); Criteo 1TB's files are not read")
+    if train.mesh_model > 0 or train.place_embedding_on_cpu or host_info()[1] > 1:
+        raise ValueError("DLRM-DCNv2's multi-hot bags run on one device: no mesh, no "
+                         "host-RAM table, one process")
+    if not _use_sparse_embedding(train):
+        raise ValueError("DLRM-DCNv2 trains its table with the sparse-embedding step "
+                         "(adagrad with wd = 0)")
+    device = resolve_device(train.device)
+    cfg = dataclasses.replace(
+        config, vocab_sizes=tuple(min(int(v), data.synthetic_vocab) for v in config.vocab_sizes),
+        init_rows=config.init_rows or config.vocab_sizes)
+    model = dcnv2_init(cfg, train.seed, device)
+    steps_per_epoch = _train_steps_per_epoch(data, train)
+    sched = make_lr_schedule(train.lr_schedule, train.learning_rate,
+                             steps_per_epoch * train.num_epochs,
+                             steps_per_epoch // 10 // train.num_epochs)
+    if train.report_flops:
+        _report_model_stats(model, cfg.num_dense, log_fn, logging_dir=train.logging_dir)
+    opt, step, eval_step = _make_steps(train, sched, bag_sizes=cfg.bag_sizes)
+    state = _init_state(model, opt, train)
+
+    def train_iter():
+        return multihot_batches(data.synthetic_train_examples, data.train_batch_size,
+                                cfg.vocab_sizes, cfg.bag_sizes, cfg.num_dense, seed=0,
+                                loop=True, device=device)
+
+    def test_iter():
+        return multihot_batches(data.synthetic_test_examples, data.test_batch_size,
+                                cfg.vocab_sizes, cfg.bag_sizes, cfg.num_dense, seed=1,
+                                device=device)
+
+    state, epoch_logs, best = _train_epochs(step, eval_step, state, train_iter, test_iter,
+                                            data, train, steps_per_epoch, log_fn)
+    params = {n: p.detach().cpu().numpy() for n, p in state.model.named_parameters()}
+    _dump_logs(train.logging_dir, epoch_logs,
+               {"dcnv2": dataclasses.asdict(cfg), "data": dataclasses.asdict(data),
+                "train": dataclasses.asdict(train)},
+               {"params": params, "step": state.step}, ckpt_backend=train.ckpt_backend)
+    return {"state": state, "logs": epoch_logs, "best_params": best, "config": cfg}
 
 
 @dataclasses.dataclass

@@ -1098,3 +1098,218 @@ def test_sparse_mesh_step_over_nccl_at_world_size_one(dev):
         state_1, m_1 = step_1(state_1, *batch)
     assert float(m_m["loss"]) == float(m_1["loss"])
     assert _max_diff(model_m, model_1) == 0.0
+
+
+# The 128-wide instances (DLRM-DCNv2's rows).  The table update is held to its
+# plain version bit for bit, as at 16.  The segment-sum sums each run in a
+# fixed order whose partial sums carry across tiles (and, for a bag step's
+# one column of all lookups, across tens of thousands of them), so a run's
+# sum is held to float64: within 2^-20 of the run's sum of |g| for runs of up
+# to 16 lookups, growing as the square root of the run's length beyond
+# (rounding errors of a sum of n terms of either sign grow as sqrt(n)).
+
+
+def _runs_float64(rows_sorted, g_sorted):
+    """Each run's float64 sum, sum of |g| and length, runs in sorted order."""
+    start = torch.ones_like(rows_sorted, dtype=torch.bool)
+    start[1:] = rows_sorted[1:] != rows_sorted[:-1]
+    run = start.cumsum(0) - 1
+    n = int(run[-1]) + 1
+    g64 = g_sorted.double()
+    sums = torch.zeros(n, g64.shape[1], dtype=torch.float64, device=g64.device)
+    sums.index_add_(0, run, g64)
+    abs_sums = torch.zeros_like(sums).index_add_(0, run, g64.abs())
+    lengths = torch.zeros(n, dtype=torch.float64, device=g64.device).index_add_(
+        0, run, torch.ones_like(run, dtype=torch.float64))
+    return sums, abs_sums, lengths
+
+
+def _check_seg128(seg, is_end, sums, abs_sums, lengths):
+    off = seg[~is_end]
+    assert bool((off == 0).all()) and not bool(torch.signbit(off).any())
+    err = (seg[is_end].double() - sums).abs()
+    tol = 2.0 ** -20 * abs_sums * torch.clamp(lengths / 16, min=1.0).sqrt()[:, None]
+    assert bool((err <= tol).all()), float((err / tol.clamp(min=1e-30)).max())
+
+
+def _bag_case(dev, case):
+    """(idx [P] int32 fused rows, bag_of [P] int64, g [bags, 128]) of a bag case."""
+    import numpy as np
+
+    from nasrec_tpu_torch.configs.dcnv2 import DCNV2_CRITEO1TB, row_share
+    from nasrec_tpu_torch.models.embedding import EmbeddingStem, table_offsets
+
+    if case == "dcnv2":         # the cell's step: batch 16384, 3,506,176 lookups
+        cfg = row_share(DCNV2_CRITEO1TB, 4)
+        b, vocab, bags = 16384, cfg.vocab_sizes, cfg.bag_sizes
+    elif case == "one_row":     # one run of 21,000 lookups across 329 tiles
+        b, vocab, bags = 3000, (1,), (7,)
+    elif case == "small":
+        b, vocab, bags = 37, (5, 1, 40, 2), (1, 3, 7, 2)
+    elif case == "b1":
+        b, vocab, bags = 1, (9, 4000), (3, 100)
+    rng = np.random.RandomState(len(case))
+    stem = EmbeddingStem(vocab, 128, torch.Generator(), device="meta", bag_sizes=bags)
+    cols = np.repeat(np.asarray(vocab, np.int64), bags)
+    ids = (rng.random_sample((b, cols.size)) * cols).astype(np.int64)
+    idx = torch.as_tensor((ids + np.repeat(table_offsets(vocab), bags)).astype(np.int32),
+                          device=dev).reshape(-1)
+    bag_of = stem.bag_index(b, dev)
+    g = torch.as_tensor(rng.randn(b * len(bags), 128).astype(np.float32), device=dev)
+    return idx, bag_of, g
+
+
+@pytest.mark.parametrize("case", ["dcnv2", "one_row", "small", "b1"])
+def test_segment_sum128_bag_kernel_matches_plain_and_float64(dev, case):
+    """The bag form at width 128: rows and is_end equal the plain version's;
+    seg exact +0.0 off the run ends and at them within the bound above of the
+    float64 sums, and within that bound plus the plain version's own (its
+    atomics) of the plain version's; one launch a call; two launches give
+    the same bits."""
+    idx, bag_of, g = _bag_case(dev, case)
+    before = segment_sum.LAUNCHES["segment_sum128"]
+    rows, seg, is_end = segment_sum.segment_sum_bags(idx, bag_of, g)
+    again = segment_sum.segment_sum_bags(idx, bag_of, g)
+    p_rows, p_seg, p_end = segment_sum.segment_sum_bags(idx, bag_of, g, impl="plain")
+    torch.cuda.synchronize()
+    assert segment_sum.LAUNCHES["segment_sum128"] == before + 2
+    assert torch.equal(rows, p_rows) and torch.equal(is_end, p_end)
+    assert all(torch.equal(a, w) for a, w in zip((rows, seg, is_end), again))
+    order = torch.sort(idx.long(), stable=True).indices
+    sums, abs_sums, lengths = _runs_float64(rows.long(), g[bag_of[order]])
+    _check_seg128(seg, is_end, sums, abs_sums, lengths)
+    _check_seg128(p_seg, p_end, sums, abs_sums, lengths)
+
+
+@pytest.mark.parametrize("b,vocab", [(1001, (300, 7, 1, 5000, 2)), (64, (3, 70)), (1, (5,))])
+def test_segment_sum128_slotwise_kernel_matches_float64(dev, b, vocab):
+    """The one-hot form [B, C] at width 128 (runs across the 64-position
+    tiles of a column): as above."""
+    import numpy as np
+
+    from nasrec_tpu_torch.models.embedding import table_offsets
+
+    rng = np.random.RandomState(b)
+    idx = np.stack([rng.randint(0, v, size=b) for v in vocab], 1) + table_offsets(vocab)
+    idx2d = torch.as_tensor(idx.astype(np.int32), device=dev)
+    g = torch.as_tensor(rng.randn(idx.size, 128).astype(np.float32), device=dev)
+    rows, seg, is_end = segment_sum.segment_sum(idx2d, g)
+    p_rows, _, p_end = segment_sum.segment_sum(idx2d, g, impl="plain")
+    assert torch.equal(rows, p_rows) and torch.equal(is_end, p_end)
+    rows_cb, order = torch.sort(idx2d.t().long(), dim=1, stable=True)
+    g_cb = torch.take_along_dim(g.reshape(b, len(vocab), 128).transpose(0, 1),
+                                order[:, :, None], dim=1)
+    # Runs never cross columns: each column's rows lie above the last's.
+    _check_seg128(seg, is_end, *_runs_float64(rows_cb.reshape(-1), g_cb.reshape(-1, 128)))
+
+
+@pytest.mark.parametrize("vocab,positions,hot_row,sentinels",
+                         [(100, 0, None, 0), (1000, 777, None, 5), (500, 4096, 7, 3),
+                          (3000, 1001, None, 0)])
+def test_table_update128_kernel_matches_plain(dev, vocab, positions, hot_row, sentinels):
+    """At width 128 (one warp a position) the update equals the plain
+    version bit for bit, and row_offset halves equal the whole update; the
+    rows it counts as written are the plain version's, halves included."""
+    gen = torch.Generator(device=dev).manual_seed(vocab + positions)
+    idx = torch.randint(0, vocab, (positions,), device=dev, generator=gen, dtype=torch.int32)
+    if hot_row is not None:
+        idx[::2] = hot_row
+    g = torch.randn(max(positions, 1), 128, device=dev, generator=gen)
+    bag_of = torch.arange(positions, device=dev)
+    if positions:
+        rows, seg, _ = segment_sum.segment_sum_bags(idx, bag_of, g)
+    else:
+        rows, seg = idx, g[:0]
+    if sentinels:
+        rows = torch.cat([rows, torch.full((sentinels,), vocab + 3, device=dev,
+                                           dtype=rows.dtype)])
+        seg = torch.cat([seg, torch.ones(sentinels, 128, device=dev)])
+    table = torch.randn(vocab, 128, device=dev, generator=gen)
+    acc = torch.rand(vocab, 128, device=dev, generator=gen)
+    if positions:
+        seg[rows == rows[0]] = 0.0      # a row with a zero sum: not written
+    before = table_update.LAUNCHES["table_update128"]
+    written = torch.zeros(4, dtype=torch.int64, device=dev)
+    tk, ak = table.clone(), acc.clone()
+    table_update.table_update(tk, ak, rows, seg, 0.05, 1e-8, written=written[0:1])
+    tp, ap = table.clone(), acc.clone()
+    table_update.table_update(tp, ap, rows, seg, 0.05, 1e-8, impl="plain", written=written[1:2])
+    half = vocab // 2
+    lo_t, lo_a, hi_t, hi_a = (x.clone() for x in (table[:half], acc[:half], table[half:],
+                                                  acc[half:]))
+    table_update.table_update(lo_t, lo_a, rows, seg, 0.05, 1e-8, row_offset=0,
+                              written=written[2:3])
+    table_update.table_update(hi_t, hi_a, rows, seg, 0.05, 1e-8, row_offset=half,
+                              written=written[3:4])
+    torch.cuda.synchronize()
+    assert table_update.LAUNCHES["table_update128"] == before + 3
+    assert torch.equal(tk, tp) and torch.equal(ak, ap)
+    assert torch.equal(torch.cat([lo_t, hi_t]), tk) and torch.equal(torch.cat([lo_a, hi_a]), ak)
+    n = written.tolist()
+    assert n[0] == n[1] == n[2] + n[3] == int(((tk != table).any(dim=1)).sum())
+
+
+def test_wide_kernels_refuse_what_they_do_not_take(dev):
+    idx, bag_of, g = _bag_case(dev, "small")
+    before = (dict(segment_sum.LAUNCHES), dict(table_update.LAUNCHES))
+    for bad in ((idx.long(), bag_of, g), (idx, bag_of.int(), g), (idx, bag_of[:-1], g),
+                (idx, bag_of, g[:, :64].contiguous()), (idx, bag_of, g.double()),
+                (idx.cpu(), bag_of.cpu(), g.cpu())):
+        with pytest.raises(ValueError):
+            segment_sum.segment_sum_bags_kernel(*bad)
+    table, acc = torch.zeros(10, 64, device=dev), torch.zeros(10, 64, device=dev)
+    with pytest.raises(ValueError):
+        table_update.table_update_kernel(table, acc, idx[:3], torch.ones(3, 64, device=dev), 0.1)
+    table, acc = torch.zeros(10, 16, device=dev), torch.zeros(10, 16, device=dev)
+    for written in (torch.zeros(1, dtype=torch.int64, device=dev),     # no count at 16
+                    torch.zeros(1, dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError):
+            table_update.table_update_kernel(table, acc, idx[:3], torch.ones(3, 16, device=dev),
+                                             0.1, written=written)
+    assert (dict(segment_sum.LAUNCHES), dict(table_update.LAUNCHES)) == before
+
+
+def test_dcnv2_step_kernels_match_plain(dev):
+    """Three DLRM-DCNv2 sparse steps at a small size (128-wide rows, bags of
+    1 to 7): one 128-wide segment-sum and table update a step through the
+    kernels and none through the plain versions; losses, parameters and
+    accumulators within 1e-5 of the plain step's (the plain segment-sum's
+    atomics sum a row's lookups in another order).  Adagrad's eps is 1e-2:
+    at the preset's 1e-8 an element whose gradient cancels to within
+    rounding of zero moves by up to lr on either route."""
+    import numpy as np
+
+    from nasrec_tpu_torch.models.dcn import DCNv2Config, dcnv2_init
+    from nasrec_tpu_torch.train.optim import make_optimizer, slot_dicts
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    cfg = DCNv2Config(vocab_sizes=(500, 40, 3, 1000), bag_sizes=(3, 1, 2, 7),
+                      dense_arch=(64, 128), cross_rank=32, over_arch=(64,))
+    rng = np.random.RandomState(0)
+    cols = np.repeat(np.asarray(cfg.vocab_sizes), cfg.bag_sizes)
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in (
+        rng.randn(512, 13).astype(np.float32),
+        (rng.random_sample((512, cols.size)) * cols).astype(np.int32),
+        rng.randint(0, 2, size=(512, 1)).astype(np.float32))) for _ in range(3)]
+    out = []
+    for impl in ("auto", "plain"):
+        model = dcnv2_init(cfg, 0, dev)
+        opt = make_optimizer("adagrad", 1e-2)
+        state = init_sparse_train_state(model, opt)
+        step = make_sparse_embedding_train_step(lambda s: 0.005, optimizer=opt, grad_clip=None,
+                                                adagrad_eps=1e-2, impl=impl,
+                                                bag_sizes=cfg.bag_sizes)
+        before = _launches()
+        losses = [float(step(state, *b)[1]["loss"]) for b in batches]
+        want = {"segment_sum128": 3, "table_update128": 3} if impl == "auto" else {}
+        assert _launched(before) == want
+        out.append((model, slot_dicts(state.opt_state)[0], losses))
+    (mk, ak, lk), (mp, ap, lp) = out
+    assert max(abs(a - b) for a, b in zip(lk, lp)) <= 1e-5 * max(lp)
+    sd_k, sd_p = mk.state_dict(), mp.state_dict()
+    for name in sd_k:
+        assert (sd_k[name] - sd_p[name]).abs().max().item() <= 1e-5, name
+        assert (ak[name] - ap[name]).abs().max().item() <= 1e-5 * max(1.0, ap[name].abs().max().item()), name

@@ -133,9 +133,10 @@ def _segsum_standin(idx2d, g):
     return segment_sum.segment_sum_plain(idx2d, g)
 
 
-def _table_standin(table, acc, rows, seg16, lr, eps=1e-2, row_offset=0):
+def _table_standin(table, acc, rows, seg16, lr, eps=1e-2, row_offset=0, written=None):
     table_update.LAUNCHES["table_update"] += 1
-    return table_update.table_update_plain(table, acc, rows, seg16, lr, eps, row_offset)
+    return table_update.table_update_plain(table, acc, rows, seg16, lr, eps, row_offset,
+                                           written)
 
 
 @pytest.fixture
@@ -172,6 +173,7 @@ def kernels(monkeypatch):
         yield launches
     finally:
         torch._C._functorch._set_vmap_fallback_enabled(True)
+        launches()      # the stand-ins' counts are not left for later tests
 
 
 def _close(got, want, tol=TOL):

@@ -132,13 +132,17 @@ def test_kernel_rejects_bad_inputs_before_any_launch(monkeypatch, which):
 
 def test_kernel_source_is_registered():
     assert "segment_sum" in build.KERNEL_SOURCES
-    assert list(build.SIGNATURES["segment_sum"]) == ["nasrec_segment_sum"]
+    assert list(build.SIGNATURES["segment_sum"]) == ["nasrec_segment_sum",
+                                                     "nasrec_segment_sum128"]
     text = (build.CSRC_DIR / "segment_sum.cu").read_text()
     assert 'extern "C" int nasrec_segment_sum(' in text
+    assert 'extern "C" int nasrec_segment_sum128(' in text
     # Its __global__ functions are named segsum_*, apart from the other
-    # kernels' names, which a device trace is searched for.
+    # kernels' names, which a device trace is searched for; the 128-wide
+    # instance's names hold "128".
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", text)
-    assert names == ["segsum_tile_kernel", "segsum_carry_kernel"]
+    assert names == ["segsum_tile_kernel", "segsum_tile128_kernel", "segsum_carry_kernel",
+                     "segsum_walk128_kernel"]
 
 
 def _counted(plain, module, key):

@@ -70,6 +70,21 @@ def test_off_records_nothing():
     assert tracing.spans() == []
 
 
+def test_device_counter_only_under_a_profiler():
+    """Off, there is no counter; on, one int64 a name and device, kept until
+    `clear`, read by `device_counts`; the one-hot step asks for none."""
+    assert tracing.device_counter("train.rows_updated", "cpu") is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        c = tracing.device_counter("train.rows_updated", "cpu")
+        c += 3
+        assert tracing.device_counter("train.rows_updated", "cpu") is c
+        _fixed_step()()
+    assert c.dtype == torch.int64 and c.shape == (1,)
+    assert tracing.device_counts() == {"train.rows_updated": 3}
+    tracing.clear()
+    assert tracing.device_counts() == {}
+
+
 def test_parser_thread_sees_the_profiler():
     """A thread started before the profiler, as the prefetch thread is,
     learns that the recorder is on from torch's process-wide flag; the
