@@ -29,7 +29,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
               the plain version's, zeros off the run ends, each run within
               2^-20 of its sum of |g| from float64 sums, equal bits from two
               runs; the plain version, the PyTorch composite it replaced, as
-              the library call too).  With errors
+              the library call too); the dense parameters' global-norm clip
+              and Adagrad update as one launch each over the whole list, on
+              one xlarge sparse step's own lists (86 gradients and the
+              table's summed gradient; the scale within 2 ulps of the plain
+              version's, parameters and accumulators bit for bit given it,
+              equal bits from two launches; torch._foreach_* as the library
+              call).  With errors
               and CUDA-event times of kernel, plain version and the one
               PyTorch call that computes the same function; for the
               dot-product and the table update also the kernel's time with
@@ -344,12 +350,15 @@ XL, AC = "criteo-kaggle/xlarge", "criteo-kaggle/autoctr"
 BODY_SLOTS = (64, 48, 16)
 # Every kernel launch of one train step: the dot-product forward and backward
 # at each n, the body's training forward and backward at each S, the
-# segment-sum and the table update.
+# segment-sum and the table update, and the dense parameters' global-norm
+# clip and Adagrad update, each one launch over the whole list of tensors
+# (csrc/dense_adagrad.cu; once a step, whatever its micro-batches).
 TABLE_KERNELS = {"segment_sum", "table_update"}
+LIST_KERNELS = {"clip_scale", "adagrad"}
 TRAIN_STEP_KERNELS = {
     arch: ({f"dot_scores_tril_{k}_n{n}" for k in ("fwd", "bwd") for n in dots}
            | {f"transformer_body_{k}_s{s}" for k in ("fwd_train", "bwd") for s in bodies}
-           | TABLE_KERNELS)
+           | TABLE_KERNELS | LIST_KERNELS)
     for arch, (dots, bodies) in ARCH_SHAPES.items()}
 # An eval forward (under no_grad) launches the forward kernels only.
 EVAL_KERNELS = {
@@ -382,11 +391,14 @@ TSV_TIMED_STEPS = 16
 # Phase 3b (dense): the dense-gradient step of criteo-kaggle/xlarge at full
 # vocab, batch 32768, per (optimizer, wd, constant lr); 3 steps through the
 # kernels and 3 through the plain versions.  A step launches the kernels of a
-# sparse step but the segment-sum and the table update: the optimizer updates
-# the whole table.
+# sparse step but the segment-sum, the table update and the list clip: the
+# optimizer updates the whole table, and the dense step clips with the
+# table's norm summed over the mesh's shards.  Adagrad's update is the list
+# kernel's (DENSE_LIST_UPDATE); SGD and Adam loop.
 DENSE_STEPS = 3
 DENSE_SETTINGS = (("adam", 0.0, 1e-3), ("sgd", 0.0, 0.01), ("adagrad", 1e-6, 0.01))
-DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS
+DENSE_STEP_KERNELS = TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS - LIST_KERNELS
+DENSE_LIST_UPDATE = {"adagrad": {"adagrad"}, "sgd": set(), "adam": set()}
 # Phase 3c (micro): the sparse step with 2 micro-batches against 1 at batch
 # 32768 (2 steps), then batch 65536 with 2 and with 1.
 MICRO_STEPS = 2
@@ -433,7 +445,7 @@ SN_BF16_CLI_STEPS = 3
 SN_STEP_LAUNCHES = {"transformer_body_fwd_train_s64": SN_BLOCKS,
                     "transformer_body_bwd_s64": SN_BLOCKS,
                     "dot_scores_tril_fwd_n46": SN_BLOCKS, "dot_scores_tril_bwd_n46": SN_BLOCKS,
-                    "segment_sum": 1, "table_update": 1}
+                    "segment_sum": 1, "table_update": 1, "clip_scale": 1, "adagrad": 1}
 SN_EVAL_LAUNCHES = {"transformer_body_fwd_s64": SN_BLOCKS,
                     "dot_scores_tril_fwd_n46": SN_BLOCKS}
 # The search (phase 6) at the canonical search configuration: the phase-4
@@ -648,11 +660,11 @@ def dtype_of(name: str):
 
 
 def bf16_named(names):
-    """Launch keys of a bf16 run: every kernel but the segment-sum and the
-    table update (f32 under bf16 compute) has "_bf16" added.  A set or a dict
-    of counts."""
+    """Launch keys of a bf16 run: every kernel but the segment-sum, the
+    table update and the list clip and update (f32 under bf16 compute) has
+    "_bf16" added.  A set or a dict of counts."""
     def rename(k):
-        return k if k in TABLE_KERNELS else k + "_bf16"
+        return k if k in TABLE_KERNELS | LIST_KERNELS else k + "_bf16"
 
     if isinstance(names, dict):
         return {rename(k): v for k, v in names.items()}
@@ -663,6 +675,7 @@ def kernel_modules():
     """(name prefix of a kernel's rows and launch counts, its wrapper module)."""
     from nasrec_tpu_torch.ops.kernels import (
         attention,
+        dense_adagrad,
         dotprod,
         segment_sum,
         table_update,
@@ -670,7 +683,8 @@ def kernel_modules():
     )
 
     return (("dot_scores_tril_", dotprod), ("transformer_body_", transformer_body),
-            ("tiny_head_attention_", attention), ("", table_update), ("", segment_sum))
+            ("tiny_head_attention_", attention), ("", table_update), ("", segment_sum),
+            ("", dense_adagrad))
 
 
 def reset_launches() -> None:
@@ -1517,6 +1531,136 @@ def check_segment_sum(vocab, hbm, gen, rows_out, batch=BATCH, name="segment_sum"
     torch.cuda.empty_cache()
 
 
+LIST_SOURCE = "nasrec_tpu_torch/csrc/dense_adagrad.cu"
+# No Pallas kernel: the JAX package's clip and dense Adagrad are XLA's.
+LIST_REPLACES = "nasrec_tpu/train/optim.py (XLA clip_by_global_norm, adagrad_update)"
+
+
+def check_dense_adagrad(hbm, rows_out, max_norm=5.0, lr=0.16, eps=1e-2) -> None:
+    """The list kernels on one criteo-kaggle/xlarge sparse step's own lists at
+    batch 32768 and full vocab, caught at the step's clip: its 86 dense
+    gradients (2,217,268 floats) and the table's summed gradient [B * 26, 16]
+    for the norm, the dense parameters and their accumulators after the step
+    for the update.  Against the plain versions: the scale within 2 ulps;
+    given the kernel's scale, parameters and accumulators bit for bit; equal
+    bits from two launches.  Rows "clip_scale" and "adagrad": `ms` times the
+    launches alone on a pointer table packed once, `wrapper_ms` the calls
+    through the wrapper, which checks and packs the table on the host at
+    every call; their library calls the torch._foreach_* form
+    (clip_grad_norm_'s norm, Adagrad's update)."""
+    import numpy as np
+    import torch
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.fixed import fixed_init
+    from nasrec_tpu_torch.ops.kernels import build, dense_adagrad
+    from nasrec_tpu_torch.train import sparse_embedding
+    from nasrec_tpu_torch.train.loop import TABLE
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    dev = torch.device(DEVICE)
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(VOCAB_CAP)
+    model = fixed_init(best_plan(XL, vocab), seed=0, device=dev)
+    state = init_sparse_train_state(model)
+    caught = []
+    clip_scale = sparse_embedding.clip_scale
+
+    def catching(grads, norm, extra=None, impl="auto"):
+        caught.append((list(grads), extra))
+        return clip_scale(grads, norm, extra, impl)
+
+    sparse_embedding.clip_scale = catching       # the step's own lists
+    try:
+        step = make_sparse_embedding_train_step(lambda s: lr, grad_clip=max_norm)
+        step(state, *device_batches(np.random.RandomState(12), 1, BATCH, vocab)[0])
+    finally:
+        sparse_embedding.clip_scale = clip_scale
+    (grads, seg), = caught
+    names = [n for n, _ in model.named_parameters() if n != TABLE]
+    params = [p.detach() for n, p in model.named_parameters() if n != TABLE]
+    accs = [state.opt_state[n] for n in names]
+    del state, step
+    scale = dense_adagrad.clip_scale(grads, max_norm, seg)
+    again = dense_adagrad.clip_scale(grads, max_norm, seg)
+    want = dense_adagrad.clip_scale(grads, max_norm, seg, impl="plain")
+    ulps = abs(int(scale.view(torch.int32)) - int(want.view(torch.int32)))
+    outs = []
+    for impl in ("auto", "auto", "plain"):
+        p, a = [x.clone() for x in params], [x.clone() for x in accs]
+        dense_adagrad.adagrad_(p, a, grads, lr, eps, scale, impl)
+        outs.append(p + a)
+    same = [all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(o, outs[0]))
+            for o in outs[1:]]
+    n_dense, n_seg = sum(g.numel() for g in grads), seg.numel()
+    ok = (ulps <= 2 and torch.equal(scale.view(torch.int32), again.view(torch.int32))
+          and all(same) and len(grads) == len(params))
+    emit({"phase": "kernels", "kernel": "dense_adagrad", "arch": XL, "batch": BATCH,
+          "tensors": len(grads), "dense_floats": n_dense, "seg_shape": list(seg.shape),
+          "scale": float(scale), "scale_plain": float(want), "scale_ulps": ulps,
+          "bit_exact_repeat": same[0], "bit_exact_vs_plain": same[1], "ok": ok})
+    if not ok:
+        raise SystemExit("dense_adagrad disagrees with its plain version (see its 'kernels' "
+                         "line)")
+    lists = grads + [seg]
+    p_l, a_l = [x.clone() for x in params], [x.clone() for x in accs]
+
+    def lib_norm():
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(lists)))
+        return torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+
+    def lib_update():
+        gs = torch._foreach_mul(grads, scale)
+        torch._foreach_addcmul_(a_l, gs, gs)
+        den = torch._foreach_sqrt(a_l)
+        torch._foreach_add_(den, eps)
+        torch._foreach_addcdiv_(p_l, gs, den, value=-lr)
+
+    p_k, a_k = [x.clone() for x in params], [x.clone() for x in accs]
+    p_p, a_p = [x.clone() for x in params], [x.clone() for x in accs]
+    # The launches alone: each pointer table packed once, as the wrapper
+    # packs it (dense_adagrad._table).
+    lib = build.load_library("dense_adagrad")
+    c_ptrs, c_sizes = dense_adagrad._table([lists], "gradient", seg.device)
+    u_ptrs, u_sizes = dense_adagrad._table([p_k, a_k, grads], "tensor", seg.device)
+    chunks = int(((c_sizes + dense_adagrad.CHUNK - 1) // dense_adagrad.CHUNK).sum())
+    partials = torch.empty(chunks, dtype=torch.float64, device=dev)
+    c_out = torch.empty((), dtype=torch.float32, device=dev)
+
+    def clip_launch():
+        build.check(lib.nasrec_dense_clip_scale(
+            c_ptrs.ctypes.data, c_sizes.ctypes.data, len(lists), partials.data_ptr(), chunks,
+            float(max_norm), c_out.data_ptr(), build.current_stream()), "dense_adagrad clip_scale")
+
+    def update_launch():
+        build.check(lib.nasrec_dense_adagrad(
+            u_ptrs.ctypes.data, u_sizes.ctypes.data, len(grads), scale.data_ptr(), float(lr),
+            float(eps), build.current_stream()), "dense_adagrad")
+
+    clip_launch()
+    if not torch.equal(c_out.view(torch.int32), scale.view(torch.int32)):
+        raise SystemExit("dense_adagrad's launch alone gives another scale than its wrapper")
+    # Bytes: the norm reads every gradient and seg; the update reads p, a and
+    # g and writes p and a.
+    rows_out["clip_scale"] = kernel_row(
+        "clip_scale", LIST_SOURCE, LIST_REPLACES, abs(float(scale) - float(want)), clip_launch,
+        lambda: dense_adagrad.clip_scale(grads, max_norm, seg, impl="plain"),
+        lib_norm, 4 * (n_dense + n_seg), 2 * (n_dense + n_seg), hbm)
+    rows_out["clip_scale"]["wrapper_ms"] = cuda_ms(
+        lambda: dense_adagrad.clip_scale(grads, max_norm, seg))
+    rows_out["adagrad"] = kernel_row(
+        "adagrad", LIST_SOURCE, LIST_REPLACES, 0.0, update_launch,
+        lambda: dense_adagrad.adagrad_(p_p, a_p, grads, lr, eps, scale, impl="plain"),
+        lib_update, 4 * 5 * n_dense, 8 * n_dense, hbm)
+    rows_out["adagrad"]["wrapper_ms"] = cuda_ms(
+        lambda: dense_adagrad.adagrad_(p_k, a_k, grads, lr, eps, scale))
+    del model, params, accs, grads, seg, lists, outs, p_l, a_l, p_k, a_k, p_p, a_p, caught
+    del partials, c_out
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(hbm):
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
@@ -1543,6 +1687,7 @@ def phase_kernels(hbm):
     spec = DATASETS["criteo-kaggle"]
     check_table_update(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
     check_segment_sum(spec.vocab_sizes(VOCAB_CAP), hbm, gen, rows_out)
+    check_dense_adagrad(hbm, rows_out)
     # Phase 11's tables: every slot's rows of avazu and kdd, the batch's
     # positions uniform over them, the highest rows among them; the
     # segment-sum over their slots.
@@ -1656,7 +1801,8 @@ def segsum_row(table: str) -> str:
 def add_launches(rows_out, launches: dict, dataset: str = "criteo-kaggle") -> None:
     """Launches at batch 32768 counted in the rows of the same kernel and
     shape (the table update's and the segment-sum's in the rows of the
-    dataset's table)."""
+    dataset's table; the list clip's and update's, whatever the list, in
+    their one row each, checked on the xlarge step's lists)."""
     for name, count in launches.items():
         if name == "table_update":
             name = table_row(dataset)
@@ -2201,9 +2347,9 @@ def phase_dense(rows_out, sparse_step_ms: float):
 
     def recording(opt, log):
         """`opt`, keeping each step's gradients."""
-        def update_(state, names, params, grads, lr_now):
-            log.append(grads)
-            opt.update_(state, names, params, grads, lr_now)
+        def update_(state, names, params, grads, lr_now, scale=None, impl="auto"):
+            log.append(grads if scale is None else [g * scale for g in grads])
+            opt.update_(state, names, params, grads, lr_now, scale, impl)
         return Optimizer(opt.init, update_)
 
     def adam_edges(g_k, g_p, mu, nu, count, lr):
@@ -2292,7 +2438,8 @@ def phase_dense(rows_out, sparse_step_ms: float):
         ok = (all(math.isfinite(x) for x in losses_k + losses_p)
               and loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
               and held and (not adam or int(state_k.opt_state.count) == DENSE_STEPS)
-              and launches == lockstep == {k: DENSE_STEPS for k in DENSE_STEP_KERNELS})
+              and launches == lockstep == {k: DENSE_STEPS for k in DENSE_STEP_KERNELS
+                                           | DENSE_LIST_UPDATE[name]})
         emit({"phase": "dense", "arch": "criteo-kaggle/xlarge", "optimizer": name, "wd": wd,
               "lr": lr, "vocab_rows": int(sum(vocab)), "batch": BATCH, "steps": DENSE_STEPS,
               "losses": losses_k, "losses_plain": losses_p, "max_loss_diff": loss_diff,
@@ -2356,7 +2503,8 @@ def phase_dcnv2(hbm: float):
         return model, state, losses, times, m["logits"], read_launches()
 
     kern, plain = run("auto"), run("plain")
-    per_step = {"segment_sum128": DCN_STEPS, "table_update128": DCN_STEPS}
+    per_step = {"segment_sum128": DCN_STEPS, "table_update128": DCN_STEPS,
+                "adagrad": DCN_STEPS}
     loss_diff = max(abs(a - b) for a, b in zip(kern[2], plain[2]))
     logit_diff = (kern[4] - plain[4]).abs().max().item()
     param_diff = state_diff(kern[0], plain[0])
@@ -2497,7 +2645,7 @@ def phase_micro(rows_out):
     loss_diff = max(abs(a - b) for a, b in zip(one[2], two[2]))
     logit_diff = (one[4] - two[4]).abs().max().item()
     want_two = Counter({k: 2 * MICRO_STEPS for k in TRAIN_STEP_KERNELS[XL]})
-    for k in TABLE_KERNELS:
+    for k in TABLE_KERNELS | LIST_KERNELS:
         want_two[k] = MICRO_STEPS
     ok = (loss_diff <= LOSS_TOL and logit_diff <= LOGIT_TOL and param_diff <= PARAM_TOL
           and acc_diff <= PARAM_TOL
@@ -2542,9 +2690,10 @@ def supernet_config(vocab):
 
 
 def suffixed(launches: dict, train: bool) -> dict:
-    """Launch counts of the supernet drive under the names of its rows."""
+    """Launch counts of the supernet drive under the names of its rows (the
+    list kernels' under theirs: they take no batch)."""
     tail = f"_b{SN_BATCH}" if train else f"_b{SN_EVAL_BATCH}"
-    return {k + tail: v for k, v in launches.items()}
+    return {k if k in LIST_KERNELS else k + tail: v for k, v in launches.items()}
 
 
 def phase_supernet(rows_out, compute_dtype="float32"):
@@ -2825,9 +2974,14 @@ def join_launches(rows_out, launches: dict, batch: int, hbm, gen, table=None) ->
     plain version at that shape and timed (`check_dot_scores`,
     `check_transformer_body`, `check_table_update`, `check_segment_sum`).
     table: (name, vocab) of the run's table, whose update goes into the row
-    "<name>_b<batch>" and whose segment-sum beside it (`segsum_row`)."""
+    "<name>_b<batch>" and whose segment-sum beside it (`segsum_row`).  The
+    list clip's and update's launches, which take no batch, go into their one
+    row each (`check_dense_adagrad`)."""
     suffix = f"_b{batch}"
     for name, count in launches.items():
+        if name in LIST_KERNELS:
+            rows_out[name]["launches"] = rows_out[name].get("launches", 0) + count
+            continue
         if name in TABLE_KERNELS and table is not None:
             name = table[0] if name == "table_update" else segsum_row(table[0])
         row = name + suffix
@@ -3211,14 +3365,16 @@ def add_group_launches(rows_out, launches: dict, per_candidate: int, folded: int
     """An evaluator's launches into their rows: the K-candidate body's at the
     batch a candidate (its launch keys carry "_k<K>"), every other kernel's at
     the rows it launched on, the table update's into `table` and the
-    segment-sum's into the row beside it.  A bf16 launch of another kernel at
-    these batches has no row (phase 4 leaves its bf16 launches out the same
-    way)."""
+    segment-sum's into the row beside it, the list kernels' into theirs.  A
+    bf16 launch of another kernel at these batches has no row (phase 4
+    leaves its bf16 launches out the same way)."""
     for key, count in launches.items():
         if key == "table_update":
             row = table
         elif key == "segment_sum":
             row = segsum_row(table)
+        elif key in LIST_KERNELS:
+            row = key
         elif re.search(r"_k\d+", key):
             row = f"{key}_b{per_candidate}"
         else:
@@ -3791,7 +3947,8 @@ def phase_multi_device(rows_out, main_step_ms: float) -> None:
     loss_err = max(abs(a - b) for a, b in zip(off_losses, ref_losses))
     param_err = dense_diff(off, ref)
     split = {k: v / (MD_STEPS - 1) * 1e3 for k, v in timings.items()}
-    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS}
+    # The host clips: the card runs the list update alone.
+    want_off = {k: MD_STEPS for k in TRAIN_STEP_KERNELS[XL] - TABLE_KERNELS - {"clip_scale"}}
     ok = (loss_err <= OFFLOAD_TOL and param_err <= OFFLOAD_TOL
           and table_err <= OFFLOAD_REL * table_moved and acc_err <= OFFLOAD_REL * acc_moved
           and table_moved > 0 and acc_moved > 0 and launches == want_off

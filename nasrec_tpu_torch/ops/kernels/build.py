@@ -36,7 +36,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("dotprod", "table_update", "attention", "transformer_body", "segment_sum")
+KERNEL_SOURCES = ("dotprod", "table_update", "attention", "transformer_body", "segment_sum",
+                  "dense_adagrad")
 
 _c_ptr, _c_ll, _c_int, _c_float = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
@@ -72,6 +73,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                _c_int, _c_ptr),
         "nasrec_segment_sum128": (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                                   _c_ll, _c_int, _c_ptr),
+    },
+    "dense_adagrad": {
+        "nasrec_dense_clip_scale": (_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ll, _c_float, _c_ptr,
+                                    _c_ptr),
+        "nasrec_dense_adagrad": (_c_ptr, _c_ptr, _c_int, _c_ptr, _c_float, _c_float, _c_ptr),
     },
 }
 

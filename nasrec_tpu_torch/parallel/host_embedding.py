@@ -139,7 +139,7 @@ def make_host_offload_train_step(
             lr = float(lr_schedule(state.step))
             scale_f32 = float(np.float32(scale))
             optimizer.update_(state.opt_state, [n for n, _ in named], [p for _, p in named],
-                              [g * scale_f32 for g in g_rest], lr)
+                              [g * scale_f32 for g in g_rest], lr, impl=impl)
             host_emb.apply_grad(rows, row_grads, lr, scale)
             mark("update", t0)
         state.step += 1

@@ -163,16 +163,16 @@ def make_train_step(
             grads = [grads[i] if i in grads else torch.zeros_like(p)
                      for i, (_, p) in enumerate(leaves)]
             mesh.mean_over_data_(grads)
+            scale = None
             if grad_clip is not None:
                 ti = [n for n, _ in leaves].index(TABLE)
                 sq_rest = torch.stack([torch.sum(torch.square(g))
                                        for i, g in enumerate(grads) if i != ti]).sum()
                 sq_table = mesh.sum_over_model_(torch.sum(torch.square(grads[ti])).reshape(1))
                 scale = global_norm_scale(sq_rest + sq_table[0], grad_clip)
-                grads = [g * scale for g in grads]
             lr = float(lr_schedule(state.step))
             optimizer.update_(state.opt_state, [n for n, _ in named],
-                              [p for _, p in named], grads, lr)
+                              [p for _, p in named], grads, lr, scale, impl)
             loss = bce.detach().clone()
             mesh.mean_over_data_([loss])
             l2 = l2_rest.detach() + mesh.sum_over_model_(l2_table.detach().reshape(1).clone())[0]

@@ -97,26 +97,37 @@ def adam_update_(params: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """init(named_params) -> state; update_(state, names, params, grads, lr)
-    updates the parameters `names` (tensors `params`, gradients `grads`) and
-    their slots of `state` in place."""
+    """init(named_params) -> state; update_(state, names, params, grads, lr,
+    scale=None, impl="auto") updates the parameters `names` (tensors
+    `params`, gradients `grads`, each times `scale` where it is given: a
+    0-dim tensor, the global-norm clip's) and their slots of `state` in
+    place.  `impl` as the kernels take it: Adagrad's update of CUDA tensors
+    runs the list kernel of ops/kernels/dense_adagrad.py, which applies
+    `scale` inside the update; SGD and Adam loop over the tensors."""
 
     init: Callable[[Iterable[Tuple[str, torch.Tensor]]], Any]
     update_: Callable[..., None]
 
 
-def _adagrad(state, names, params, grads, lr, eps=1e-2):
-    adagrad_update_(params, [state[n] for n in names], grads, lr, eps)
+def _scaled(grads, scale):
+    return grads if scale is None else [g * scale for g in grads]
 
 
-def _sgd(state, names, params, grads, lr):
-    sgd_update_(params, [state.momentum[n] for n in names], grads, lr)
+def _adagrad(state, names, params, grads, lr, scale=None, impl="auto", eps=1e-2):
+    # Imported here: the kernel's module takes its plain version from this one.
+    from nasrec_tpu_torch.ops.kernels.dense_adagrad import adagrad_
+
+    adagrad_(params, [state[n] for n in names], grads, lr, eps, scale, impl)
 
 
-def _adam(state, names, params, grads, lr):
+def _sgd(state, names, params, grads, lr, scale=None, impl="auto"):
+    sgd_update_(params, [state.momentum[n] for n in names], _scaled(grads, scale), lr)
+
+
+def _adam(state, names, params, grads, lr, scale=None, impl="auto"):
     state.count.add_(1)
     adam_update_(params, [state.mu[n] for n in names], [state.nu[n] for n in names],
-                 grads, lr, int(state.count))
+                 _scaled(grads, scale), lr, int(state.count))
 
 
 def make_optimizer(name: str, adagrad_eps: float = 1e-2) -> Optimizer:

@@ -37,6 +37,7 @@ from typing import Callable, Mapping, Optional, Sequence
 import torch
 
 from nasrec_tpu_torch import tracing
+from nasrec_tpu_torch.ops.kernels.dense_adagrad import clip_scale
 from nasrec_tpu_torch.ops.kernels.segment_sum import segment_sum, segment_sum_bags
 from nasrec_tpu_torch.ops.kernels.table_update import table_update
 from nasrec_tpu_torch.parallel.embedding import sharded_lookup
@@ -51,7 +52,6 @@ from nasrec_tpu_torch.train.loop import (
 from nasrec_tpu_torch.train.metrics import bce_with_logits
 from nasrec_tpu_torch.train.optim import (
     Optimizer,
-    global_norm_scale,
     l2_penalty,
     make_optimizer,
     slot_dicts,
@@ -121,6 +121,10 @@ def make_sparse_embedding_train_step(
     takes `masks`) whose `embedding.table` is trained here by the touched-row
     Adagrad update; every other parameter by `optimizer` (Adagrad by
     default), on the state of `init_sparse_train_state(model, optimizer)`.
+    The global-norm clip takes all those parameters' gradients as one list
+    (`ops/kernels/dense_adagrad.py :: clip_scale`) and hands its scale to the
+    optimizer, which applies it inside the update (Adagrad's list kernel on
+    the card) or to each gradient (SGD, Adam).
     A frozen parameter (`trainable`) keeps its value and its slots.
     impl='auto' runs the hand-written kernels on the card and their plain
     versions on the CPU; impl='plain' names the plain versions.  `table_impl`
@@ -239,21 +243,18 @@ def make_sparse_embedding_train_step(
                         rows, seg, _ = rowwise_segment_sum_slotwise(
                             mesh.gather_over_data(idx), d_all.reshape(-1, table.shape[1]),
                             table_impl)
+            scale = None
             if grad_clip is not None:
                 with tracing.span("train.clip"):
-                    sq = torch.stack([torch.sum(torch.square(g)) for g in g_rest]).sum()
-                    if train_table:
-                        # sum(seg^2) is the dense table gradient's squared norm:
-                        # seg holds each vocab row's summed gradient once.
-                        sq = sq + torch.sum(torch.square(seg))
-                    scale = global_norm_scale(sq, grad_clip)
-                    g_rest = [g * scale for g in g_rest]
+                    # sum(seg^2) is the dense table gradient's squared norm:
+                    # seg holds each vocab row's summed gradient once.
+                    scale = clip_scale(g_rest, grad_clip, seg if train_table else None, impl)
                     if train_table:
                         seg = seg * scale
             with tracing.span("train.dense_update"):
                 lr = float(lr_schedule(state.step))
                 optimizer.update_(state.opt_state, [n for n, _ in rest],
-                                  [p for _, p in rest], g_rest, lr)
+                                  [p for _, p in rest], g_rest, lr, scale, impl)
             if train_table:
                 with tracing.span("train.table_update", device=True):
                     # On the bag path, while a profiler runs, the update counts

@@ -29,7 +29,12 @@ profiling.dot_flops of the xlarge forward (and of a forward and backward)
 through the kernels against the plain versions, and both device checks
 (tools/body_device_check.py, tools/sweep_device_check.py); the host-RAM
 table's step against the on-device step (1e-4), and the sparse mesh step over
-an NCCL group of one rank against the one-device step (equal bits).
+an NCCL group of one rank against the one-device step (equal bits); the
+dense parameters' clip and Adagrad as one list (1, 13 and 1,201,920 floats,
+300 tensors, zero gradients, eps 1e-2 and 1e-8, tensors on no 16-byte
+boundary, the xlarge table's summed gradient in the norm) against its plain
+version, three xlarge steps through it against the plain step within
+xlarge.uniform's limits, and its counter of fused tensors (86 on xlarge).
 chip_smoke.py holds the same kernels at the main path's shapes.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
@@ -59,6 +64,7 @@ import torch.nn.functional as F
 
 from nasrec_tpu_torch.ops.kernels import (
     attention,
+    dense_adagrad,
     dotprod,
     segment_sum,
     table_update,
@@ -733,7 +739,8 @@ XLARGE_STEP = {"dot_fwd_n40": 1, "dot_fwd_n9": 1, "dot_bwd_n40": 1, "dot_bwd_n9"
 @pytest.mark.parametrize("optimizer,wd", [("adam", 0.0), ("sgd", 0.0), ("adagrad", 1e-6)])
 def test_dense_step_launches_the_body_and_dot_product_kernels(dev, optimizer, wd):
     """One dense-gradient xlarge step launches the body and dot-product kernels
-    forward and backward, and no table update; its loss and parameters match
+    forward and backward, and no table update; with Adagrad the optimizer's
+    update is one launch of the list kernel; its loss and parameters match
     the plain step's."""
     import copy
 
@@ -746,10 +753,14 @@ def test_dense_step_launches_the_body_and_dot_product_kernels(dev, optimizer, wd
     for model, impl in ((model_k, "auto"), (model_p, "plain")):
         opt = make_optimizer(optimizer)
         step = make_train_step(opt, lambda s: 1e-3, l2_reg=wd, impl=impl)
-        before = _launches()
+        before, lists = _launches(), dict(dense_adagrad.LAUNCHES)
         _, metrics = step(init_train_state(model, opt), *batch)
         losses.append(float(metrics["loss"]))
         assert _launched(before) == (XLARGE_STEP if impl == "auto" else {})
+        # Adagrad's update is the list kernel's; the dense step's clip is its own.
+        lists = {k: v - lists.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()
+                 if v != lists.get(k, 0)}
+        assert lists == ({"adagrad": 1} if impl == "auto" and optimizer == "adagrad" else {})
     assert abs(losses[0] - losses[1]) <= 1e-4
     sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
     # Adam's first step moves an element by lr times its gradient's sign: an
@@ -1313,3 +1324,194 @@ def test_dcnv2_step_kernels_match_plain(dev):
     for name in sd_k:
         assert (sd_k[name] - sd_p[name]).abs().max().item() <= 1e-5, name
         assert (ak[name] - ap[name]).abs().max().item() <= 1e-5 * max(1.0, ap[name].abs().max().item()), name
+
+
+# The dense parameters' clip and Adagrad as one list (csrc/dense_adagrad.cu):
+# given the same scale, parameters and accumulators bit-equal to the plain
+# version; the scale, whose squares are summed in another order, within 2
+# ulps of the plain version's; two launches give the same bits.
+
+def _dense_lists(dev, sizes, seed, grad_scale, zero_grads=False, misaligned=False):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def put(a):
+        # A view one float into a buffer lies on no 16-byte boundary.
+        if not misaligned:
+            return torch.as_tensor(a, device=dev)
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=dev)
+        buf[1:] = torch.as_tensor(a, device=dev)
+        return buf[1:]
+
+    params = [put(rng.randn(n).astype(np.float32)) for n in sizes]
+    accs = [put(np.abs(rng.randn(n)).astype(np.float32)) for n in sizes]
+    grads = [put((np.zeros(n) if zero_grads else rng.randn(n) * grad_scale).astype(np.float32))
+             for n in sizes]
+    return params, accs, grads
+
+
+DENSE_CASES = {
+    # case: (sizes, grad scale, eps, clip, extra rows, zero grads, misaligned)
+    "1_13_1201920": ([1, 13, 1201920], 0.1, 1e-2, 5.0, 0, False, False),
+    "300_tensors": (None, 1.0, 1e-2, 5.0, 0, False, False),
+    "zero_grads": ([1, 13, 4099, 1201920], 1.0, 1e-8, 5.0, 0, True, False),
+    "eps_1e-8": ([1, 13, 1201920], 1e-4, 1e-8, 5.0, 0, False, False),
+    "misaligned": ([1, 5, 1201, 16387, 70001], 1.0, 1e-2, 5.0, 0, False, True),
+    "no_clip": ([1, 13, 1201920], 1.0, 1e-8, None, 0, False, False),
+    "xlarge_seg": ([1, 13, 1201920], 1e-3, 1e-2, 5.0, 32768 * 26, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_adagrad_kernel_matches_plain(dev, case):
+    import numpy as np
+
+    sizes, grad_scale, eps, clip, extra_rows, zero, misaligned = DENSE_CASES[case]
+    if sizes is None:        # more tensors than one launch's table holds, some empty
+        sizes = list(np.random.RandomState(3).randint(0, 5000, size=300))
+        sizes[7] = 0
+    params, accs, grads = _dense_lists(dev, sizes, 0, grad_scale, zero, misaligned)
+    extra = (torch.randn(extra_rows, 16, device=dev, generator=torch.Generator(dev).manual_seed(1))
+             if extra_rows else None)
+    runs = []
+    for _ in range(2):
+        before = dict(dense_adagrad.LAUNCHES)
+        scale = None if clip is None else dense_adagrad.clip_scale(grads, clip, extra)
+        p, a = [x.clone() for x in params], [x.clone() for x in accs]
+        dense_adagrad.adagrad_(p, a, grads, 0.05, eps, scale)
+        torch.cuda.synchronize()
+        assert dense_adagrad.LAUNCHES["adagrad"] - before.get("adagrad", 0) == 1
+        assert (dense_adagrad.LAUNCHES["clip_scale"] - before.get("clip_scale", 0)) == (clip is not None)
+        runs.append((scale, p, a))
+    (scale, p, a), (scale2, p2, a2) = runs
+    for x, y in zip(p + a + [scale] * (clip is not None), p2 + a2 + [scale2] * (clip is not None)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))      # two runs, same bits
+    if clip is not None:
+        want = dense_adagrad.clip_scale(grads, clip, extra, impl="plain")
+        ulps = abs(int(scale.view(torch.int32)) - int(want.view(torch.int32)))
+        assert ulps <= 2, (float(scale), float(want))
+        if zero:
+            assert float(scale) == 1.0
+    pp, ap = [x.clone() for x in params], [x.clone() for x in accs]
+    dense_adagrad.adagrad_(pp, ap, grads, 0.05, eps, scale, impl="plain")
+    for i, (x, y) in enumerate(zip(p + a, pp + ap)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), i
+    if zero:
+        assert all(torch.equal(x, y) for x, y in zip(p, params))
+
+
+def test_dense_adagrad_kernel_refuses_what_it_does_not_take(dev):
+    p, a, g = (torch.zeros(8, device=dev) for _ in range(3))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        dense_adagrad.adagrad_([p], [a], [g.double()], 0.1, 1e-2)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        dense_adagrad.adagrad_([p.view(4, 2).t()], [a.view(4, 2).t()], [g.view(4, 2).t()], 0.1, 1e-2)
+    with pytest.raises(ValueError, match="sizes"):
+        dense_adagrad.adagrad_([p], [a], [torch.zeros(9, device=dev)], 0.1, 1e-2)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        dense_adagrad.clip_scale([g, g.cpu()], 5.0)
+
+
+def _leaf_gap(prog, ref):
+    """The benchmark's leaf gap (benchmark/lib/compare.py): the worst leaf's
+    |prog - ref| over the larger of its ref and the median leaf's, over the
+    leaves with a ref of at least a thousandth of the median."""
+    import statistics
+
+    med = statistics.median(v for v in ref.values() if v > 0)
+    return max(abs(prog[n] - ref[n]) / max(ref[n], med) for n in ref
+               if ref[n] > 0 and ref[n] >= 1e-3 * med)
+
+
+def test_sparse_step_dense_kernel_within_the_cell_limits(dev):
+    """Three xlarge sparse steps at batch 32768 through the kernels against
+    the plain versions, from the same weights and batches: the first loss,
+    each leaf's first gradient (from its Adagrad accumulator) and each leaf's
+    change over the three steps within xlarge.uniform's limits (2e-6, 1e-4,
+    2e-4); the dense update launches once a step, the clip once."""
+    import copy
+
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model, batch = _fixed_case(dev, 32768, vocab=100_000)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for impl in ("auto", "plain"):
+        m = copy.deepcopy(model)
+        state = init_sparse_train_state(m)
+        step = make_sparse_embedding_train_step(lambda s: 0.16, impl=impl)
+        before = dict(dense_adagrad.LAUNCHES)
+        loss = float(step(state, *batch)[1]["loss"])
+        grad = {n: a.sum().sqrt().item() for n, a in state.opt_state.items()}
+        for _ in range(2):
+            step(state, *batch)
+        want = 1 if impl == "auto" else 0
+        assert {k: v - before.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()} == \
+            {"adagrad": 3 * want, "clip_scale": 3 * want}
+        change = {n: (v - start[n]).norm().item() for n, v in m.state_dict().items()}
+        out[impl] = (loss, grad, change)
+    (lk, gk, ck), (lp, gp, cp) = out["auto"], out["plain"]
+    assert abs(lk - lp) / abs(lp) <= 2e-6
+    assert _leaf_gap(gk, gp) <= 1e-4
+    assert _leaf_gap(ck, cp) <= 2e-4
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_sparse_step_clips_through_the_list_kernel_for_sgd_and_adam(dev, optimizer):
+    """With SGD or Adam the sparse step's clip is the list kernel's (one
+    launch a step) and the update the optimizer's loop (no list update); its
+    loss and parameters match the plain step's."""
+    import copy
+
+    from nasrec_tpu_torch.train.optim import make_optimizer
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model_k, batch = _fixed_case(dev, 1024)
+    model_p = copy.deepcopy(model_k)
+    losses = []
+    for model, impl in ((model_k, "auto"), (model_p, "plain")):
+        opt = make_optimizer(optimizer)
+        step = make_sparse_embedding_train_step(lambda s: 1e-3, optimizer=opt, impl=impl)
+        before = dict(dense_adagrad.LAUNCHES)
+        _, metrics = step(init_sparse_train_state(model, opt), *batch)
+        losses.append(float(metrics["loss"]))
+        launched = {k: v - before.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        assert launched == ({"clip_scale": 1} if impl == "auto" else {})
+    assert abs(losses[0] - losses[1]) <= 1e-4
+    sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
+    tol = 1e-4 + (2e-3 if optimizer == "adam" else 0.0)
+    for name in sd_k:
+        assert (sd_k[name] - sd_p[name]).abs().max().item() <= tol, name
+
+
+def test_xlarge_step_counts_86_fused_tensors(dev):
+    """Under a profiler, one xlarge step's `train.dense_update` counts the 86
+    dense tensors the kernel updated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nasrec_tpu_torch import tracing
+    from nasrec_tpu_torch.train.sparse_embedding import (
+        init_sparse_train_state,
+        make_sparse_embedding_train_step,
+    )
+
+    model, batch = _fixed_case(dev, 1024)
+    state = init_sparse_train_state(model)
+    step = make_sparse_embedding_train_step(lambda s: 0.16)
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            step(state, *batch)
+            torch.cuda.synchronize()
+        (span,) = [s for s in tracing.spans() if s.name == "train.dense_update"]
+        assert span.counts == {"train.dense_tensors_fused": 86}
+    finally:
+        tracing.clear()
