@@ -10,8 +10,8 @@
 //           dividend's sign (torch.fmod), so empty maps to bucket 0.
 //
 // Buffers of whole lines are split at line boundaries over host threads, each
-// writing its own rows.  Its rows/s on the card's host are printed by the
-// `data` phase of chip_smoke.py.
+// writing its own rows.  Its rows/s on the card's host is the xlarge.tsv
+// cell's parse_rows_per_s.tsv (benchmark/metrics/).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libfastparse.so fast_parse.cpp -lpthread
 

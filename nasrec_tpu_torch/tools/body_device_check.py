@@ -7,7 +7,7 @@ CLIs' default eval batch, 16368 = 31 x 512 + 496 rows (no multiple of any
 tile the kernels use), with 1000 rows a slot (the table's size does not
 matter to these kernels), through impl="kernel" and impl="plain" from the
 same weights and inputs, and holds the logits to 1e-3 (absolute; the tolerance
-`chip_smoke.py` holds a forward's logits to).  Prints BODY_DEVICE_CHECK_OK.
+tests/test_torch_cuda_paths.py holds a forward's logits to).  Prints BODY_DEVICE_CHECK_OK.
 Without a card it raises: it never runs the plain version in the kernel's
 place.
 

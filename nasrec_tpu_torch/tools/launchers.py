@@ -4,9 +4,9 @@ each one runs, with its shell variables expanded.
     python -m nasrec_tpu_torch.tools.launchers     # every launcher's commands
 
 The JAX package's launchers under scripts/ have the same form, so the tests
-read both with `launcher_commands` and compare their flags; `chip_smoke.py`
-runs the port's launchers through each CLI's `main` with these flags and its
-own overrides appended (argparse keeps a flag's last value).
+read both with `launcher_commands`, compare their flags and parse the
+port's with its CLIs' parsers; to try a launcher with other sizes, append
+overrides to its flags (argparse keeps a flag's last value).
 """
 
 from __future__ import annotations

@@ -35,12 +35,19 @@ dense parameters' clip and Adagrad as one list (1, 13 and 1,201,920 floats,
 boundary, the xlarge table's summed gradient in the norm) against its plain
 version, three xlarge steps through it against the plain step within
 xlarge.uniform's limits, and its counter of fused tensors (86 on xlarge).
-chip_smoke.py holds the same kernels at the main path's shapes.
+The same kernels at the main paths' shapes: the body, the attention core
+and the dot-product at batch 32768, f32 and bf16; the transformer node's
+fused form against its unfused form; the table update and the segment-sum
+over each dataset's full table and the search's capped one; the list
+kernels on an xlarge step's 86 tensors.  The paths that run them (training,
+the search, the CLIs) are tests/test_torch_cuda_paths.py.
 
 Needs an NVIDIA card; skipped without one.  The port needs no JAX, so on
-the card run it without tests/conftest.py, which imports JAX:
+the card run the two card test files without tests/conftest.py, which
+imports JAX (collecting all of tests/ would import the JAX tests too):
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py \
+        tests/test_torch_cuda_paths.py
 
 Tolerance (f32): the dot-product forward rtol 1e-5 / atol 1e-5, its backward
 (dx and dyt) rtol 1e-5 / atol 1e-4 (sums of up to 45 products of N(0,1)
@@ -139,12 +146,49 @@ def test_dot_scores_tril_kernel_other_launch_shapes(dev, batch, n, shape):
         del dotprod.TUNE[key]
 
 
+# The main paths' tables: (dataset, rows a slot at most, stacked copies).
+# "supernet" is the search-capped table of the supernet and the search,
+# "supernet_k8" the whole-net group's 8 stacked copies of it.
+TABLES = {"criteo-kaggle": ("criteo-kaggle", None, 1), "avazu": ("avazu", None, 1),
+          "kdd": ("kdd", None, 1), "supernet": ("criteo-kaggle", 500_000, 1),
+          "supernet_k8": ("criteo-kaggle", 500_000, 8)}
+
+
+def _table_indices(dev, table, batch, seed):
+    """[batch, slots] int32 fused rows over a table of TABLES ("<name>" or
+    "<name>:zipf"): each slot's index uniform over its rows (or zipf(1.05),
+    clipped), and the first example at every slot's last row, so the update
+    reaches the table's highest row.  Returns (indices, the table's rows)."""
+    import numpy as np
+
+    from nasrec_tpu_torch.config import DATASETS
+    from nasrec_tpu_torch.models.embedding import table_offsets
+
+    name, _, kind = table.partition(":")
+    dataset, cap, copies = TABLES[name]
+    slots = np.asarray(DATASETS[dataset].vocab_sizes(cap) * copies)
+    rng = np.random.RandomState(seed)
+    if kind == "zipf":
+        cols = np.minimum(rng.zipf(1.05, size=(batch, slots.size)) - 1, slots - 1)
+    else:
+        cols = (rng.random_sample((batch, slots.size)) * slots).astype(np.int64)
+    cols[0] = slots - 1
+    idx = cols + np.asarray(table_offsets(tuple(slots)))
+    return torch.as_tensor(idx.astype(np.int32), device=dev), int(slots.sum())
+
+
 def _update_case(dev, vocab, positions, seed, hot_row=None, sentinels=0):
+    """vocab: the table's rows, with `positions` uniform indices; or a table
+    of TABLES, with a batch of `positions` examples over its slots."""
     from nasrec_tpu_torch.train.sparse_embedding import rowwise_segment_sum_slotwise
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    idx = torch.randint(0, vocab, (positions, 1), device=dev, generator=gen,
-                        dtype=torch.int32)
+    if isinstance(vocab, str):
+        idx, vocab = _table_indices(dev, vocab, positions, seed)
+    else:
+        idx = torch.randint(0, vocab, (positions, 1), device=dev, generator=gen,
+                            dtype=torch.int32)
+    positions = idx.numel()
     if hot_row is not None:
         idx[::2] = hot_row
     g = torch.randn(positions, 16, device=dev, generator=gen)
@@ -163,20 +207,40 @@ def _update_case(dev, vocab, positions, seed, hot_row=None, sentinels=0):
 
 @pytest.mark.parametrize("vocab,positions,hot_row,sentinels",
                          [(100, 0, None, 0), (1000, 777, None, 5), (500, 4096, 7, 3),
-                          (3000, 1001, None, 0)])   # 1001: no multiple of a block's positions
+                          (3000, 1001, None, 0),    # 1001: no multiple of a block's positions
+                          # The main paths' tables: batch 32768 over every slot of
+                          # each dataset's full vocab (33,762,601, 9,459,467 and
+                          # 50,666,853 rows), and batch 512 over the search's
+                          # capped table and the whole-net group's 8 copies of it.
+                          ("criteo-kaggle", 32768, None, 0), ("criteo-kaggle:zipf", 32768, None, 0),
+                          ("avazu", 32768, None, 0), ("kdd", 32768, None, 0),
+                          ("supernet", 512, None, 0), ("supernet:zipf", 512, None, 0),
+                          ("supernet_k8", 512, None, 0)])
 def test_table_update_kernel_matches_plain(dev, vocab, positions, hot_row, sentinels):
-    rows, seg, table, acc = _update_case(dev, vocab, positions, vocab, hot_row, sentinels)
+    """Bit for bit over the whole table; no row that no position names changes."""
+    seed = vocab if isinstance(vocab, int) else len(vocab)
+    rows, seg, table, acc = _update_case(dev, vocab, positions, seed, hot_row, sentinels)
     tk, ak = table.clone(), acc.clone()
     table_update.table_update(tk, ak, rows, seg, 0.05)
     tp, ap = table.clone(), acc.clone()
     table_update.table_update(tp, ap, rows, seg, 0.05, impl="plain")
     torch.cuda.synchronize()
     assert torch.equal(tk, tp) and torch.equal(ak, ap)
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    touched[rows[rows < table.shape[0]].long()] = True
+    changed = (tk != table).any(1) | (ak != acc).any(1)
+    assert not bool((changed & ~touched).any())
+    if isinstance(vocab, str):        # the table's last row is among the updated
+        assert bool(changed[-1])
 
 
-def test_table_update_kernel_row_offset_shards(dev):
-    vocab, half = 2000, 1000
-    rows, seg, table, acc = _update_case(dev, vocab, 3000, 11, sentinels=2)
+@pytest.mark.parametrize("vocab,positions", [(2000, 3000), ("criteo-kaggle", 32768)])
+def test_table_update_kernel_row_offset_shards(dev, vocab, positions):
+    """Two launches on the table's halves (row_offset 0 and rows / 2, as the
+    model ranks of a mesh launch it) give the whole-table launch's bits; the
+    second case is Criteo's full table at batch 32768."""
+    rows, seg, table, acc = _update_case(dev, vocab, positions, 11, sentinels=2)
+    half = table.shape[0] // 2
     whole_t, whole_a = table.clone(), acc.clone()
     table_update.table_update(whole_t, whole_a, rows, seg, 0.05)
     lo_t, lo_a = table[:half].clone(), acc[:half].clone()
@@ -212,6 +276,10 @@ def _segsum_case(dev, case):
         b, vocab, k = 512, tuple(min(v, 500_000) for v in criteo), 8
     elif case == "b37":
         b, vocab = 37, (5, 1, 40, 2, 9)
+    elif case in ("avazu", "kdd"):    # the other datasets' slots at the main batch
+        b, vocab = 32768, DATASETS[case].vocab_sizes(None)
+    elif case == "supernet_b512":     # the supernet's step over the search-capped table
+        b, vocab = 512, tuple(min(v, 500_000) for v in criteo)
     cols = []
     for v in vocab:
         cols.append(rng.permutation(v)[:b] if case == "distinct" and v == b
@@ -243,7 +311,7 @@ def _segsum_float64(idx2d, g):
 
 
 @pytest.mark.parametrize("case", ["criteo", "one_row", "distinct", "b1", "b1001", "search_k8",
-                                  "b37"])
+                                  "b37", "avazu", "kdd", "supernet_b512"])
 def test_segment_sum_kernel_matches_plain_and_float64(dev, case):
     """rows and is_end equal the plain version's; seg is exact zero (+0.0) off
     the run ends, and at them within 2^-20 of the run's sum of |g| from the
@@ -409,11 +477,12 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                                   seg, 0.1)
 
 
-@pytest.mark.parametrize("batch", [1, 7, 33, 512, 4096])
+@pytest.mark.parametrize("batch", [1, 7, 33, 512, 1024, 4096, 8192])
 def test_supernet_shapes_body_and_dot_product_match_plain(dev, batch):
     """The supernet's kernel shapes at its training (512) and eval (4096)
-    batches, and at batches that fill a grid of a few blocks or leave a
-    partial last tile."""
+    batches, the search's eval chunks (1024 a candidate, 8 x 1024 a group),
+    and batches that fill a grid of a few blocks or leave a partial last
+    tile."""
     x, params, dout = _body_case(dev, batch, 64, batch + 64, "slot_minor")
     out_k, dx_k, dp_k = _body_grads(x, params, dout, "auto")
     out_p, dx_p, dp_p = _body_grads(x, params, dout, "plain")
@@ -485,10 +554,11 @@ def test_supernet_forward_and_train_step_kernels_match_plain(dev):
         assert (sd_k[name] - sd_p[name]).abs().max().item() <= 1e-4, name
 
 
-@pytest.mark.parametrize("batch", [512, 1024])
+@pytest.mark.parametrize("batch", [512, 1024, 4096, 8192])
 def test_search_shapes_body_eval_forward_matches_plain(dev, batch):
     """The search's eval body forward at S = 64: a fine-tune step's batch (512)
-    and an eval chunk (1024), x as the slot projection leaves it."""
+    and an eval chunk (1024), and a group of 8 candidates' of each folded into
+    one launch (4096, 8192), x as the slot projection leaves it."""
     x, params, _ = _body_case(dev, batch, 64, batch + 7, "slot_minor")
     before = transformer_body.LAUNCHES["fwd_s64"]
     with torch.no_grad():
@@ -526,12 +596,10 @@ def test_final_only_evaluator_kernels_match_plain(dev):
     train, test = [batch(512) for _ in range(3)], [batch(2048)]
     args = dict(max_train_steps=4, max_eval_steps=1, eval_batch_chunk=1024)
     ev_k = make_candidate_evaluator(cfg, model, **args)
-    before = {**dotprod.LAUNCHES, **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()}}
+    before = _launches()
     res_k = ev_k(picks, lambda: iter(train), lambda: iter(test))
-    after = {**dotprod.LAUNCHES, **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()}}
-    launched = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
     # 4 steps and 2 eval chunks, each 7 blocks for the group.
-    assert launched == {"fwd_n46": 6 * 7, "body_fwd_s64": 6 * 7}
+    assert _launched(before) == {"dot_fwd_n46": 6 * 7, "body_fwd_s64": 6 * 7}
     ev_p = make_candidate_evaluator(cfg, model, impl="plain", **args)
     res_p = ev_p(picks, lambda: iter(train), lambda: iter(test))
     for a, b in zip(res_k, res_p):
@@ -543,16 +611,19 @@ def test_final_only_evaluator_kernels_match_plain(dev):
 def _body_k_case(dev, k, batch, slots, dtype, seed):
     """K candidates' parameters [K, ...], x [K batch, S, 16] slot-minor, and an
     output gradient that is zero on the rows where a ReLU input lies within
-    rounding of zero (see _body_case)."""
+    rounding of zero (see _body_case), found on x as the kernel reads it (in
+    bf16, the rounded x)."""
     cases = [_body_case(dev, batch, slots, seed + i, "slot_minor") for i in range(k)]
     x = torch.cat([c[0].transpose(1, 2) for c in cases]).to(dtype).transpose(1, 2)
     params = [torch.stack(ps) for ps in zip(*(c[1] for c in cases))]
-    dout = torch.cat([c[2] for c in cases]).to(dtype)
+    dout = torch.cat([_body_case_from(x[i * batch:(i + 1) * batch].float(), c[1], c[2])[2]
+                      for i, c in enumerate(cases)]).to(dtype)
     return x, params, dout
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("k,batch,slots", [(2, 1, 16), (3, 37, 48), (8, 512, 64), (5, 333, 64)])
+@pytest.mark.parametrize("k,batch,slots", [(2, 1, 16), (3, 37, 48), (8, 512, 64), (5, 333, 64),
+                                           (8, 1024, 64)])
 def test_transformer_body_k_kernel_matches_plain_and_single_launches(dev, k, batch, slots,
                                                                       dtype):
     """The K-candidate launch gives each candidate's rows and parameter
@@ -595,13 +666,14 @@ def test_transformer_body_k_kernel_matches_plain_and_single_launches(dev, k, bat
         assert (gk - gp).abs().max().item() <= ptol * max(1.0, gp.abs().max().item()), name
 
 
-def test_vmap_rules_launch_the_k_candidate_forms(dev):
-    """Under torch.func.vmap over K = 4 candidates each kernel launches once
-    for the group, forward and backward (the body's K-candidate form where the
-    parameters vary, its one-candidate form where they are shared), and the
-    results match the plain versions."""
+@pytest.mark.parametrize("k,b", [(4, 33), (8, 512)])
+def test_vmap_rules_launch_the_k_candidate_forms(dev, k, b):
+    """Under torch.func.vmap over K candidates (4 of 33 rows; the search's
+    group, 8 of 512) each kernel launches once for the group, forward and
+    backward (the body's K-candidate form where the parameters vary, its
+    one-candidate form where they are shared), and the results match the plain
+    versions; the attention core's equal the bits of one launch a candidate."""
     tb = transformer_body
-    k, b = 4, 33
     x, params, dout = _body_k_case(dev, k, b, 64, torch.float32, 3)
     gen = torch.Generator(device=dev).manual_seed(5)
     xd = torch.randn(k, b, 16, device=dev, generator=gen, requires_grad=True)
@@ -625,10 +697,15 @@ def test_vmap_rules_launch_the_k_candidate_forms(dev):
 
     before = _launches()
     outs_k, grads_k = run("auto")
-    assert _launched(before) == {"body_fwd_train_s64_k4": 1, "body_bwd_s64_k4": 1,
+    assert _launched(before) == {f"body_fwd_train_s64_k{k}": 1, f"body_bwd_s64_k{k}": 1,
                                  "body_fwd_train_s64": 1, "body_bwd_s64": 1,
                                  "dot_fwd_n46": 1, "dot_bwd_n46": 1, "attn_fwd_s64": 1,
                                  "attn_bwd_s64": 1}
+    for i in range(k):
+        q = qkv.detach()[i]
+        assert torch.equal(outs_k[3][i], attention.tiny_head_attention_fwd_kernel(q))
+        assert torch.equal(grads_k[-1][i], attention.tiny_head_attention_bwd_kernel(
+            q, torch.ones_like(outs_k[3][i])))
     outs_p, grads_p = run("plain")
     for a, w in zip(outs_k, outs_p):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
@@ -636,11 +713,14 @@ def test_vmap_rules_launch_the_k_candidate_forms(dev):
         assert (a - w).abs().max().item() <= 2e-4 * max(1.0, w.abs().max().item())
 
 
-def test_batched_whole_evaluator_kernels_match_plain(dev):
-    """Three whole-net candidates over a two-block xlarge supernet at batch
-    512 as one K-candidate step: each step launches each kernel once a block
-    for the group and the table update once; scores within 1e-4 of the plain
-    path's and of the one-at-a-time form's."""
+@pytest.mark.parametrize("mode", ["whole", "layernorm-calibrate"])
+def test_batched_whole_evaluator_kernels_match_plain(dev, mode):
+    """Three candidates over a two-block xlarge supernet at batch 512 as one
+    K-candidate step, in the whole-net mode and in the LayerNorm-calibrate
+    mode: each step launches each kernel once a block for the group, and the
+    whole-net mode the segment-sum and the table update once (the calibrate
+    mode leaves the table frozen); scores within 1e-4 of the plain path's and
+    of the one-at-a-time form's."""
     import numpy as np
 
     from nasrec_tpu_torch.config import OPS_CONFIG_LIB
@@ -662,14 +742,15 @@ def test_batched_whole_evaluator_kernels_match_plain(dev):
 
     train, test = [batch(512) for _ in range(3)], [batch(2048)]
     args = dict(max_train_steps=3, max_eval_steps=1, eval_batch_chunk=1024,
-                finetune_mode="whole")
+                finetune_mode=mode)
     ev_k = make_candidate_evaluator(cfg, model, **args)
     before = _launches()
     res_k = ev_k(picks, lambda: iter(train), lambda: iter(test))
     # 3 steps of 2 blocks, then 2 eval chunks of 2 blocks.
+    table = {"table_update": 3, "segment_sum": 3} if mode == "whole" else {}
     assert _launched(before) == {"body_fwd_train_s64_k3": 6, "body_bwd_s64_k3": 6,
                                  "dot_fwd_n46": 6 + 4, "dot_bwd_n46": 6,
-                                 "body_fwd_s64_k3": 4, "table_update": 3, "segment_sum": 3}
+                                 "body_fwd_s64_k3": 4, **table}
     res_p = make_candidate_evaluator(cfg, model, impl="plain", **args)(
         picks, lambda: iter(train), lambda: iter(test))
     res_s = make_candidate_evaluator(cfg, model, batch_candidates=False, **args)(
@@ -724,7 +805,7 @@ def _launches():
     return {**{"dot_" + k: v for k, v in dotprod.LAUNCHES.items()},
             **{"body_" + k: v for k, v in transformer_body.LAUNCHES.items()},
             **{"attn_" + k: v for k, v in attention.LAUNCHES.items()},
-            **table_update.LAUNCHES, **segment_sum.LAUNCHES}
+            **table_update.LAUNCHES, **segment_sum.LAUNCHES, **dense_adagrad.LAUNCHES}
 
 
 def _launched(before):
@@ -734,40 +815,54 @@ def _launched(before):
 XLARGE_STEP = {"dot_fwd_n40": 1, "dot_fwd_n9": 1, "dot_bwd_n40": 1, "dot_bwd_n9": 1,
                "body_fwd_train_s64": 1, "body_fwd_train_s48": 1, "body_bwd_s64": 1,
                "body_bwd_s48": 1}
+# A sparse step adds the segment-sum, the table update, and the dense
+# parameters' clip and Adagrad update as one list each.
+XLARGE_SPARSE_STEP = {**XLARGE_STEP, "segment_sum": 1, "table_update": 1, "clip_scale": 1,
+                      "adagrad": 1}
+
+
+def _times(launches, n):
+    return {k: v * n for k, v in launches.items()}
 
 
 @pytest.mark.parametrize("optimizer,wd", [("adam", 0.0), ("sgd", 0.0), ("adagrad", 1e-6)])
 def test_dense_step_launches_the_body_and_dot_product_kernels(dev, optimizer, wd):
     """One dense-gradient xlarge step launches the body and dot-product kernels
     forward and backward, and no table update; with Adagrad the optimizer's
-    update is one launch of the list kernel; its loss and parameters match
-    the plain step's."""
+    update is one launch of the list kernel; its loss (1e-4), logits (1e-3),
+    parameters and optimizer slots match the plain step's (Adam's moments
+    within 1e-4 of their largest magnitude, other slots within 1e-4)."""
     import copy
 
     from nasrec_tpu_torch.train.loop import init_train_state, make_train_step
-    from nasrec_tpu_torch.train.optim import make_optimizer
+    from nasrec_tpu_torch.train.optim import make_optimizer, slot_dicts
 
     model_k, batch = _fixed_case(dev, 1024)
     model_p = copy.deepcopy(model_k)
-    losses = []
+    losses, logits, slots = [], [], []
     for model, impl in ((model_k, "auto"), (model_p, "plain")):
         opt = make_optimizer(optimizer)
         step = make_train_step(opt, lambda s: 1e-3, l2_reg=wd, impl=impl)
-        before, lists = _launches(), dict(dense_adagrad.LAUNCHES)
-        _, metrics = step(init_train_state(model, opt), *batch)
+        before = _launches()
+        state, metrics = step(init_train_state(model, opt), *batch)
         losses.append(float(metrics["loss"]))
-        assert _launched(before) == (XLARGE_STEP if impl == "auto" else {})
+        logits.append(metrics["logits"])
+        slots.append(slot_dicts(state.opt_state))
         # Adagrad's update is the list kernel's; the dense step's clip is its own.
-        lists = {k: v - lists.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()
-                 if v != lists.get(k, 0)}
-        assert lists == ({"adagrad": 1} if impl == "auto" and optimizer == "adagrad" else {})
+        want = {**XLARGE_STEP, **({"adagrad": 1} if optimizer == "adagrad" else {})}
+        assert _launched(before) == (want if impl == "auto" else {})
     assert abs(losses[0] - losses[1]) <= 1e-4
+    assert (logits[0] - logits[1]).abs().max().item() <= 1e-3
     sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
     # Adam's first step moves an element by lr times its gradient's sign: an
     # element whose gradient rounds to opposite signs differs by 2 lr.
     tol = 1e-4 + (2e-3 if optimizer == "adam" else 0.0)
     for name in sd_k:
         assert (sd_k[name] - sd_p[name]).abs().max().item() <= tol, name
+    for slot_k, slot_p in zip(*slots):
+        for name, want in slot_p.items():
+            scale = max(1.0, want.abs().max().item()) if optimizer == "adam" else 1.0
+            assert (slot_k[name] - want).abs().max().item() <= 1e-4 * scale, name
 
 
 def test_micro_batched_step_updates_the_table_once(dev):
@@ -787,8 +882,7 @@ def test_micro_batched_step_updates_the_table_once(dev):
         step = make_sparse_embedding_train_step(lambda s: 0.05, microbatch=micro)
         before = _launches()
         state, _ = step(init_sparse_train_state(model), *batch)
-        assert _launched(before) == {**{k: micro for k in XLARGE_STEP}, "table_update": 1,
-                                     "segment_sum": 1}
+        assert _launched(before) == {**XLARGE_SPARSE_STEP, **_times(XLARGE_STEP, micro)}
         states.append(state)
     sd_1, sd_2 = model_1.state_dict(), model_2.state_dict()
     for name in sd_1:
@@ -956,6 +1050,134 @@ def test_bf16_kernels_refuse_mixed_operands(dev):
                                   torch.zeros(3, 16, device=dev, dtype=torch.bfloat16), 0.1)
 
 
+# The kernels at the main paths' batch, 32768, on the operands as the nodes
+# hold them: the body and the attention core at S = 64 and 48
+# (criteo-kaggle/xlarge) and 16 (the avazu and kdd xlarge archs), the
+# dot-product at n = 40, 9 (xlarge), 46, 17 (autoctr) and 33
+# (avazu/autoctr).  f32: an output within 1e-5 of the plain version's largest
+# magnitude (or of 1), dx and the parameter gradients, which sum over the
+# slots and over all 2 M positions of the batch, within 1e-4.  bf16: outputs
+# in bf16 within one bf16 ulp (as above), f32 residuals as in f32, parameter
+# gradients within 1e-3.
+
+MAIN_BATCH = 32768
+
+
+def _agree(got, want, rel_tol, what):
+    if want.dtype == torch.bfloat16:
+        _within_bf16_ulp(got, want, what)
+        return
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel_tol * max(1.0, want.float().abs().max().item()), (what, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots", [64, 48, 16])
+def test_transformer_body_kernel_at_the_main_batch(dev, slots, dtype):
+    """Eval forward, training forward (out, o, the statistic) and backward (dx
+    and the twelve parameter gradients) against the plain version, x as the
+    slot projection leaves it; equal bits from two backward runs, and from x
+    laid out contiguous."""
+    tb = transformer_body
+    gen = torch.Generator(device=dev).manual_seed(slots)
+    x = torch.randn(MAIN_BATCH, 16, slots, device=dev, generator=gen).to(dtype).transpose(1, 2)
+    dout = torch.randn(MAIN_BATCH, slots, 16, device=dev, generator=gen).to(dtype)
+    params = []
+    for name, shape in zip(tb.PARAM_NAMES, tb.PARAM_SHAPES):
+        p = 0.3 * torch.randn(shape, device=dev, generator=gen)
+        params.append(p + 0.17 if name in ("attn_ln_w", "fc_ln_w") else p)
+    _, _, dout = _body_case_from(x.float(), params, dout)
+    flat = tb.flatten_params(params)
+
+    out_e, _, _ = tb.transformer_body_fwd_kernel(x, flat, save=False)
+    out_t, o_k, st_k = tb.transformer_body_fwd_kernel(x, flat, save=True)
+    dx_k, dflat_k = tb.transformer_body_bwd_kernel(x, dout, o_k, st_k, flat)
+    dx_2, dflat_2 = tb.transformer_body_bwd_kernel(x, dout, o_k, st_k, flat)
+    assert torch.equal(out_e, out_t) and torch.equal(dx_k, dx_2) and torch.equal(dflat_k, dflat_2)
+    xc = x.contiguous()
+    out_c, o_c, st_c = tb.transformer_body_fwd_kernel(xc, flat, save=True)
+    dx_c, dflat_c = tb.transformer_body_bwd_kernel(xc, dout, o_c, st_c, flat)
+    assert dx_c.is_contiguous() and dx_k.transpose(1, 2).is_contiguous()
+    for a, b in ((out_c, out_t), (o_c, o_k), (st_c, st_k), (dx_c, dx_k), (dflat_c, dflat_k)):
+        assert torch.equal(a, b)
+    del xc, out_c, o_c, st_c, dx_c, dflat_c
+
+    with torch.no_grad():
+        qkv = F.linear(x.float(), params[0], params[1])
+        _agree(o_k, attention.tiny_head_attention_plain(qkv), 1e-5, "o")
+        _agree(st_k, attention.softmax_lse2(qkv), 1e-5, "statistic")
+        del qkv
+    xg = x.clone().requires_grad_(True)
+    pg = [p.clone().requires_grad_(True) for p in params]
+    out_p = tb.transformer_body_plain(xg, pg)
+    grads = torch.autograd.grad(out_p, [xg] + pg, dout)
+    _agree(out_e, out_p.detach(), 1e-5, "out")
+    _agree(dx_k, grads[0], 1e-4, "dx")
+    ptol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    for name, g, want in zip(tb.PARAM_NAMES, dflat_k.split(tb.PARAM_SIZES), grads[1:]):
+        _agree(g.reshape(want.shape), want, ptol, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots", [64, 48, 16])
+def test_tiny_head_attention_kernel_at_the_main_batch(dev, slots, dtype):
+    gen = torch.Generator(device=dev).manual_seed(slots + 1)
+    qkv = torch.randn(MAIN_BATCH, slots, 48, device=dev, generator=gen).to(dtype)
+    do = torch.randn(MAIN_BATCH, slots, 16, device=dev, generator=gen).to(dtype)
+    o_k = attention.tiny_head_attention_fwd_kernel(qkv)
+    dqkv_k = attention.tiny_head_attention_bwd_kernel(qkv, do)
+    qg = qkv.clone().requires_grad_(True)
+    o_p = attention.tiny_head_attention_plain(qg)
+    (dqkv_p,) = torch.autograd.grad(o_p, qg, do)
+    _agree(o_k, o_p.detach(), 1e-5, "o")
+    _agree(dqkv_k, dqkv_p, 1e-4, "dqkv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [46, 17, 40, 9, 33])
+def test_dot_scores_tril_kernel_at_the_main_batch(dev, n, dtype):
+    """x [B, 16] and yt [B, 16, n - 1] as the node holds them; equal bits
+    from two runs."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(MAIN_BATCH, 16, device=dev, generator=gen).to(dtype)
+    yt = torch.randn(MAIN_BATCH, 16, n - 1, device=dev, generator=gen).to(dtype)
+    dz = torch.randn(MAIN_BATCH, dotprod.tril_size(n), device=dev, generator=gen).to(dtype)
+    z_k = dotprod.dot_scores_tril_fwd_kernel(x, yt)
+    dx_k, dy_k = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+    z_2 = dotprod.dot_scores_tril_fwd_kernel(x, yt)
+    dx_2, dy_2 = dotprod.dot_scores_tril_bwd_kernel(x, yt, dz)
+    assert torch.equal(z_k, z_2) and torch.equal(dx_k, dx_2) and torch.equal(dy_k, dy_2)
+    xg, yg = x.clone().requires_grad_(True), yt.clone().requires_grad_(True)
+    z_p = dotprod.dot_scores_tril_plain(xg, yg)
+    dx_p, dy_p = torch.autograd.grad(z_p, [xg, yg], dz)
+    for got, want, what in ((z_k, z_p.detach(), "z"), (dx_k, dx_p, "dx"), (dy_k, dy_p, "dyt")):
+        _agree(got, want, 1e-5, what)
+
+
+def test_transformer_node_fused_form_matches_its_unfused_form(dev):
+    """The xlarge plan's block-0 transformer node (26 -> 64 slots) at batch
+    32768: the body kernels against PyTorch ops around the attention kernel,
+    output within 1e-5 and input gradient within 1e-4."""
+    from nasrec_tpu_torch.ops.attention import Transformer
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    node = Transformer(26, 64, 16, False, gen, dev)
+    sparse = torch.randn(MAIN_BATCH, 26 * 16, device=dev, generator=gen)
+    co = torch.randn(MAIN_BATCH, 64 * 16, device=dev, generator=gen)
+    with torch.no_grad():
+        x = node.proj(sparse.reshape(MAIN_BATCH, 26, 16).transpose(1, 2)).transpose(1, 2)
+    _, _, co = _body_case_from(x, node.body_params(), co.reshape(MAIN_BATCH, 64, 16))
+    co = co.reshape(MAIN_BATCH, 64 * 16)
+    res = []
+    for fused in (True, False):
+        node.fused = fused
+        xs = sparse.clone().requires_grad_(True)
+        out = node(xs, 16)
+        res.append((out.detach(), torch.autograd.grad(out, xs, co)[0]))
+    _agree(res[0][0], res[1][0], 1e-5, "out")
+    _agree(res[0][1], res[1][1], 1e-4, "dx")
+
+
 def test_bf16_xlarge_step_launches_the_bf16_kernels(dev):
     """One sparse xlarge step with compute_dtype bf16: the body and
     dot-product kernels launch in bf16, the table update in f32; the
@@ -977,8 +1199,8 @@ def test_bf16_xlarge_step_launches_the_bf16_kernels(dev):
         state, m = step(init_sparse_train_state(model), *batch)
         torch.cuda.synchronize()
         losses.append(float(m["loss"]))
-        want = ({**{k + "_bf16": 1 for k in XLARGE_STEP}, "table_update": 1,
-                 "segment_sum": 1} if impl == "auto" else {})
+        want = ({**{k + "_bf16": 1 for k in XLARGE_STEP}, "table_update": 1, "segment_sum": 1,
+                 "clip_scale": 1, "adagrad": 1} if impl == "auto" else {})
         assert _launched(before) == want
         assert m["logits"].dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in model_k.parameters())
@@ -1060,7 +1282,7 @@ def test_host_offload_step_on_the_card_matches_the_on_device_step(dev):
     for _ in range(3):
         state_o, m_o = step_o(state_o, *batch)
     torch.cuda.synchronize()
-    assert _launched(before) == {k: 3 for k in XLARGE_STEP}
+    assert _launched(before) == {**_times(XLARGE_STEP, 3), "adagrad": 3}
     for _ in range(3):
         state_d, m_d = step_d(state_d, *batch)
     assert abs(float(m_o["loss"]) - float(m_d["loss"])) <= 1e-4
@@ -1104,7 +1326,7 @@ def test_sparse_mesh_step_over_nccl_at_world_size_one(dev):
         assert torch.distributed.get_backend() == "nccl"
     finally:
         distributed.shutdown()
-    assert launched == {**{k: 2 for k in XLARGE_STEP}, "table_update": 2, "segment_sum": 2}
+    assert launched == _times(XLARGE_SPARSE_STEP, 2)
     for _ in range(2):
         state_1, m_1 = step_1(state_1, *batch)
     assert float(m_m["loss"]) == float(m_1["loss"])
@@ -1315,7 +1537,8 @@ def test_dcnv2_step_kernels_match_plain(dev):
                                                 bag_sizes=cfg.bag_sizes)
         before = _launches()
         losses = [float(step(state, *b)[1]["loss"]) for b in batches]
-        want = {"segment_sum128": 3, "table_update128": 3} if impl == "auto" else {}
+        want = ({"segment_sum128": 3, "table_update128": 3, "adagrad": 3} if impl == "auto"
+                else {})
         assert _launched(before) == want
         out.append((model, slot_dicts(state.opt_state)[0], losses))
     (mk, ak, lk), (mp, ap, lp) = out
@@ -1360,6 +1583,9 @@ DENSE_CASES = {
     "misaligned": ([1, 5, 1201, 16387, 70001], 1.0, 1e-2, 5.0, 0, False, True),
     "no_clip": ([1, 13, 1201920], 1.0, 1e-8, None, 0, False, False),
     "xlarge_seg": ([1, 13, 1201920], 1e-3, 1e-2, 5.0, 32768 * 26, False, False),
+    # The lists of an xlarge sparse step: its 86 dense tensors, the table's
+    # summed gradient at batch 32768 in the norm.
+    "xlarge_step": ("xlarge", 1e-3, 1e-2, 5.0, 32768 * 26, False, False),
 }
 
 
@@ -1371,18 +1597,22 @@ def test_dense_adagrad_kernel_matches_plain(dev, case):
     if sizes is None:        # more tensors than one launch's table holds, some empty
         sizes = list(np.random.RandomState(3).randint(0, 5000, size=300))
         sizes[7] = 0
+    elif sizes == "xlarge":
+        sizes = [p.numel() for n, p in _fixed_case(dev, 1)[0].named_parameters()
+                 if n != "embedding.table"]
+        assert len(sizes) == 86
     params, accs, grads = _dense_lists(dev, sizes, 0, grad_scale, zero, misaligned)
     extra = (torch.randn(extra_rows, 16, device=dev, generator=torch.Generator(dev).manual_seed(1))
              if extra_rows else None)
     runs = []
     for _ in range(2):
-        before = dict(dense_adagrad.LAUNCHES)
+        before = _launches()
         scale = None if clip is None else dense_adagrad.clip_scale(grads, clip, extra)
         p, a = [x.clone() for x in params], [x.clone() for x in accs]
         dense_adagrad.adagrad_(p, a, grads, 0.05, eps, scale)
         torch.cuda.synchronize()
-        assert dense_adagrad.LAUNCHES["adagrad"] - before.get("adagrad", 0) == 1
-        assert (dense_adagrad.LAUNCHES["clip_scale"] - before.get("clip_scale", 0)) == (clip is not None)
+        want = {"adagrad": 1} if clip is None else {"adagrad": 1, "clip_scale": 1}
+        assert _launched(before) == want
         runs.append((scale, p, a))
     (scale, p, a), (scale2, p2, a2) = runs
     for x, y in zip(p + a + [scale] * (clip is not None), p2 + a2 + [scale2] * (clip is not None)):
@@ -1444,14 +1674,12 @@ def test_sparse_step_dense_kernel_within_the_cell_limits(dev):
         m = copy.deepcopy(model)
         state = init_sparse_train_state(m)
         step = make_sparse_embedding_train_step(lambda s: 0.16, impl=impl)
-        before = dict(dense_adagrad.LAUNCHES)
+        before = _launches()
         loss = float(step(state, *batch)[1]["loss"])
         grad = {n: a.sum().sqrt().item() for n, a in state.opt_state.items()}
         for _ in range(2):
             step(state, *batch)
-        want = 1 if impl == "auto" else 0
-        assert {k: v - before.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()} == \
-            {"adagrad": 3 * want, "clip_scale": 3 * want}
+        assert _launched(before) == (_times(XLARGE_SPARSE_STEP, 3) if impl == "auto" else {})
         change = {n: (v - start[n]).norm().item() for n, v in m.state_dict().items()}
         out[impl] = (loss, grad, change)
     (lk, gk, ck), (lp, gp, cp) = out["auto"], out["plain"]
@@ -1479,12 +1707,11 @@ def test_sparse_step_clips_through_the_list_kernel_for_sgd_and_adam(dev, optimiz
     for model, impl in ((model_k, "auto"), (model_p, "plain")):
         opt = make_optimizer(optimizer)
         step = make_sparse_embedding_train_step(lambda s: 1e-3, optimizer=opt, impl=impl)
-        before = dict(dense_adagrad.LAUNCHES)
+        before = _launches()
         _, metrics = step(init_sparse_train_state(model, opt), *batch)
         losses.append(float(metrics["loss"]))
-        launched = {k: v - before.get(k, 0) for k, v in dense_adagrad.LAUNCHES.items()
-                    if v != before.get(k, 0)}
-        assert launched == ({"clip_scale": 1} if impl == "auto" else {})
+        want = {k: v for k, v in XLARGE_SPARSE_STEP.items() if k != "adagrad"}
+        assert _launched(before) == (want if impl == "auto" else {})
     assert abs(losses[0] - losses[1]) <= 1e-4
     sd_k, sd_p = model_k.state_dict(), model_p.state_dict()
     tol = 1e-4 + (2e-3 if optimizer == "adam" else 0.0)

@@ -5,7 +5,7 @@ the [E, n, B] layout change; and the CUDA kernel's index walks (the forward's
 table of register blocks, the backward's incremental walk of the triangle,
 the multiply that stands for a division in the staging loop), rendered in plain Python and
 held against `torch.tril_indices`.  The CUDA kernel itself runs on the card
-only (chip_smoke.py and test_torch_cuda.py hold it against the plain version).
+only (tests/test_torch_cuda.py holds it against the plain version).
 
 Tolerance (f32): rtol 1e-5 / atol 1e-6 forward; atol 1e-5 on the gradients,
 which sum up to 45 products in a different order.

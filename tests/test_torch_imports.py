@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py import neither jax nor the JAX package
-(nasrec_tpu), the port's shell launchers run only its own modules, and
-importing the port builds no kernel."""
+"""The port and its card tests (tests/test_torch_cuda.py,
+tests/test_torch_cuda_paths.py, which run on a host without JAX) import
+neither jax nor the JAX package (nasrec_tpu), the port's shell launchers run
+only its own modules, and importing the port builds no kernel."""
 
 import re
 import subprocess
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "nasrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "nasrec_tpu_torch").rglob("*.py")) + [
+    ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cuda_paths.py"]
 BANNED = re.compile(
     r"^\s*(import\s+(jax|nasrec_tpu)(\.|\s|,|$)|from\s+(jax|nasrec_tpu)(\.|\s))",
     re.MULTILINE,

@@ -20,7 +20,7 @@
     against K = 1 runs.
 
 The CUDA kernels themselves run on the card only (tests/test_torch_cuda.py,
-chip_smoke.py phase 2).
+tests/test_torch_cuda_paths.py).
 
 Tolerance (f32): K-candidate forms and stand-in routes against the loop or
 the plain route 1e-5 (abs, of values of order one; the K-candidate body's

@@ -5,7 +5,7 @@ for CPU tensors, impl="kernel" raises there, bad inputs raise before any
 launch); the source's registration in build.py and its kernels' names; and
 the sparse step's one segment-sum a step, with micro-batches too, through a
 counted stand-in of the launch function.  The CUDA kernel runs on the card
-only (tests/test_torch_cuda.py, chip_smoke.py).
+only (tests/test_torch_cuda.py).
 
 Tolerance (f32): the plain version is the JAX composite in PyTorch, so rows
 and is_end are equal; seg is a difference of prefix sums over B positions,

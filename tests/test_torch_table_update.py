@@ -3,7 +3,7 @@
 `sweep_adagrad_update` in interpret mode on a packed-then-unpacked table.
 Covers duplicates, a hot row, sentinel rows, row_offset shards, and that
 untouched rows stay bit-exact.  The CUDA kernel runs on the card only
-(chip_smoke.py holds it against this plain version).
+(tests/test_torch_cuda.py holds it against this plain version).
 
 Tolerance (f32): rtol 1e-5 / atol 1e-6 on touched rows (the sweep kernel may
 contract to fused multiply-adds); untouched rows exactly equal.
