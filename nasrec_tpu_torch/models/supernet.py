@@ -9,8 +9,11 @@ whole choice to `ChoiceMasks` and passes them as inputs to one compiled
 function; this port does the same eagerly: every node of every block is
 computed and multiplied by its gate, and no mask value is read on the host,
 so one step launches the same kernels whatever the subnet and never waits
-for the card.  (Skipping the nodes of a zero gate would be faster and is
-left to later work.)
+for the card.  Training and the search's whole-net modes need that: the
+gradients reach every weight, and one launch sequence serves every subnet.
+The search's final-only group, whose body is frozen and whose choices are
+host values, runs a forward of its own instead, each candidate's GEMMs cut
+to what its choice leaves non-zero (`search/pruned_body.py`).
 
 Module and parameter names mirror the JAX pytree: `embedding.table`,
 `blocks.<i>.nodes.<k>` (a ModuleList indexed like JAX's `nodes` list, with a

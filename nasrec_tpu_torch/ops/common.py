@@ -88,10 +88,17 @@ ACTIVATIONS = {
 
 
 def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor], axis: int = -1) -> torch.Tensor:
-    """Multiply by a width mask along `axis` (None = fixed mode, no-op)."""
+    """Multiply by a width mask along `axis` (None = fixed mode, no-op).  A
+    [K, W] mask holds K candidates' masks over x's rows folded from [K, B]:
+    rows k B to (k + 1) B take mask k."""
     if mask is None:
         return x
     mask = mask.to(x.dtype)
+    if mask.dim() == 2:
+        k = mask.shape[0]
+        shape = [k] + [1] * x.ndim
+        shape[axis % x.ndim + 1] = mask.shape[1]
+        return (x.reshape(k, -1, *x.shape[1:]) * mask.reshape(shape)).reshape(x.shape)
     if axis == -1 or axis == x.ndim - 1:
         return x * mask
     shape = [1] * x.ndim

@@ -11,10 +11,11 @@ eval.  The three fine-tune modes of the JAX package:
     one shared batch (`FinalOnlyGroup`).  Each owns a copy of the final
     linear and its Adagrad accumulator, held stacked as one [K, head_width, 1]
     weight and one [K, 1] bias.  A step looks the batch up in the table once,
-    runs the frozen body for the whole group as one folded forward under
-    `torch.no_grad()`, then takes the K logits as one batched product, the K
-    losses and their gradients, clips each candidate's gradient by its own
-    global norm and applies Adagrad.
+    runs the frozen body for the whole group under `torch.no_grad()` through
+    a forward of its own, each candidate's GEMMs cut to what its choice
+    leaves non-zero (`search/pruned_body.py`), then takes the K logits as one
+    batched product, the K losses and their gradients, clips each
+    candidate's gradient by its own global norm and applies Adagrad.
   - "whole" and "layernorm-calibrate" with `batch_candidates` (the default):
     each candidate owns a copy of every trainable parameter and its Adagrad
     accumulator, stacked on a leading K axis, and the group advances as one
@@ -44,7 +45,9 @@ differentiated is the sum of the K candidates' losses, whose gradient with
 respect to each candidate's parameters is that candidate's own (the
 candidates share none); so the backward runs outside the transform, on the
 folded tensors, and each kernel's backward launches once for the group too.
-No Python loop over the candidates is left around a launch.  No value is
+No Python loop over the candidates is left around a launch of a kernel of
+this repository; the final-only body's cut cuBLAS GEMMs are one a candidate,
+since their shapes differ between candidates.  No value is
 read back to the host inside the fine-tune loop, except the mean loss
 logged every 100 steps.
 
@@ -66,6 +69,7 @@ import torch
 from nasrec_tpu_torch import tracing
 from nasrec_tpu_torch.choices import Choice, ChoiceMasks, choice_to_masks
 from nasrec_tpu_torch.models.supernet import SuperNet, SuperNetConfig
+from nasrec_tpu_torch.search.pruned_body import PrunedBody
 from nasrec_tpu_torch.train.loop import TABLE, freeze_mask
 from nasrec_tpu_torch.train.metrics import auc_exact, binary_accuracy, stable_sigmoid
 from nasrec_tpu_torch.train.optim import adagrad_update_, global_norm_scale, make_lr_schedule
@@ -81,10 +85,13 @@ FINETUNE_MODES = {"final-only": "final-only", "whole": "normal",
 SENTINEL = {"test_acc": -1, "test_auroc": -1, "test_loss": 999.99}
 
 
-def _stacked_masks(supernet: SuperNet, choices: Sequence[Choice]) -> ChoiceMasks:
+def _host_masks(supernet: SuperNet, choices: Sequence[Choice]) -> ChoiceMasks:
     cfg = supernet.cfg
-    return ChoiceMasks.stack([choice_to_masks(c, cfg.space, cfg.num_blocks)
-                              for c in choices]).to(supernet.final.weight.device)
+    return ChoiceMasks.stack([choice_to_masks(c, cfg.space, cfg.num_blocks) for c in choices])
+
+
+def _stacked_masks(supernet: SuperNet, choices: Sequence[Choice]) -> ChoiceMasks:
+    return _host_masks(supernet, choices).to(supernet.final.weight.device)
 
 
 def _bce_per_candidate(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -102,7 +109,9 @@ class FinalOnlyGroup:
         self.k = len(choices)
         self.supernet, self.schedule, self.impl = supernet, schedule, impl
         self.grad_clip, self.adagrad_eps = grad_clip, adagrad_eps
-        self.masks = _stacked_masks(supernet, choices)
+        host = _host_masks(supernet, choices)
+        self.masks = host.to(supernet.final.weight.device)
+        self.body = PrunedBody(supernet, host, self.masks, impl)
         # The JAX layout: w [K, head_width, 1], b [K, 1].
         final = supernet.final
         self.weight = final.weight.detach().t().expand(self.k, -1, -1).clone()
@@ -112,12 +121,10 @@ class FinalOnlyGroup:
 
     @torch.no_grad()
     def features(self, dense: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
-        """[K, B, head_width]: the frozen body under each candidate's masks,
-        from one table lookup, as one forward folded over the candidates."""
-        sn = self.supernet
-        stem = sn.embedding(cat)
-        return torch.func.vmap(lambda m: sn.head_features_embedded(
-            dense, stem, m, self.impl))(self.masks)
+        """[K, B, head_width]: the frozen body under each candidate's choice,
+        from one table lookup, its GEMMs cut to each choice
+        (`search/pruned_body.py`)."""
+        return self.body.features(dense, self.supernet.embedding(cat))
 
     def _logits(self, feats, weight, bias) -> torch.Tensor:
         out = torch.baddbmm(bias[:, None, :], feats, weight)          # [K, B, 1]

@@ -7,7 +7,8 @@ step by step against the plain step, and its sparse step with 2
 micro-batches against 1; the supernet's masked steps; a whole-net search
 group of 8 candidates at the search's size (whole-net and
 LayerNorm-calibrate, as one K-candidate program and one candidate at a
-time); the CLIs
+time), and a final-only group's pruned body against the masked forward at
+the same size; the CLIs
 (main_train on synthetic data and on TSV shards, with --report_flops and
 --profile_dir; train_supernet resumed from its checkpoint, and in bf16; the
 search CLI with --method random and cached and with the latency criterion
@@ -520,6 +521,64 @@ def test_whole_net_search_group_at_the_search_size(dev, mode):
     assert not launched and not launched_one
     assert gap(batched, batched_p) <= 1e-4 and gap(one, one_p) <= 1e-4
     assert gap(batched, one) <= 1e-4 and gap(batched_p, one_p) <= 1e-4
+
+
+def test_pruned_final_only_group_at_the_search_size(dev):
+    """The final-only group's pruned body (search/pruned_body.py) against
+    the masked forward, vmap(head_features_embedded) over the masks, at the
+    supernet.search cell's size: a group of 8 from the cell's sampler
+    (default strategy, binomial-0.5) on the 7-block xlarge supernet over the
+    search-capped Criteo table (LayerNorm, biases and LayerNorm offsets
+    drawn away from 0), 3 fine-tune steps at batch 512, then a test batch of
+    8192 in eval chunks of 1024: each candidate's logits within the cell's
+    eval_logit_gap limit, 5e-5 of their norm, and the kernels launched alike
+    on both."""
+    from nasrec_tpu_torch.config import DATASETS, OPS_CONFIG_LIB, SEARCH_MAX_NUM_EMBEDDINGS
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+    from nasrec_tpu_torch.sampling import ChoiceSampler
+    from nasrec_tpu_torch.search.worker import FinalOnlyGroup
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+
+    space = OPS_CONFIG_LIB["xlarge"]
+    vocab = DATASETS["criteo-kaggle"].vocab_sizes(SEARCH_MAX_NUM_EMBEDDINGS)
+    cfg = SuperNetConfig(space=space, num_blocks=SN_BLOCKS, num_dense=13, num_sparse=26,
+                         vocab_sizes=vocab, use_layernorm=True)
+    model = supernet_init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, device=dev, generator=gen))
+    sampler = ChoiceSampler(space, SN_BLOCKS, strategy="default", anypath_choice="binomial-0.5",
+                            seed=23)
+    picks = [sampler() for _ in range(GROUP)]
+    train = _batches(dev, 3, SN_BATCH, vocab, 13, 6)
+    (dense, cat, _), = _batches(dev, 1, TEST_BATCH, vocab, 13, 7)
+
+    def run(masked):
+        group = FinalOnlyGroup(model, picks, make_lr_schedule("cosine", 0.04, 3, 0), 5.0, 1e-2,
+                               "auto")
+        if masked:
+            def features(d, c):
+                with torch.no_grad():
+                    stem = model.embedding(c)
+                    return torch.func.vmap(lambda m: model.head_features_embedded(
+                        d, stem, m, "auto"))(group.masks)
+            group.features = features
+        before = _launches()
+        for i, batch in enumerate(train):
+            group.step(*batch, i)
+        logits = torch.cat([group.logits(dense[s:s + CHUNK], cat[s:s + CHUNK])
+                            for s in range(0, TEST_BATCH, CHUNK)], dim=1)
+        return logits.double().cpu(), _launched(before), group.body
+
+    got, launched, body = run(False)
+    want, launched_masked, _ = run(True)
+    gaps = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(got, want)]
+    assert max(gaps) <= 5e-5, gaps
+    assert launched == launched_masked
+    assert body.macs_run < 0.15 * body.macs_masked
 
 
 def _main_train(args):

@@ -5,10 +5,14 @@ and all_results) for every criterion; `freeze_mask`'s trainable sets mapped
 through the transplant; the EA export tool's files; the fixed-subnet CLI's
 `--net supernet` options; the search branches that were refused before
 they were ported (the cross-process fan-out now runs); and the search, the
-re-scoring and the from-scratch evaluation on TSV shards.
+re-scoring and the from-scratch evaluation on TSV shards; and the
+final-only group's pruned body against the masked forward it replaces, with
+the transformer and dot-product nodes it calls as that forward calls them.
 
 Tolerance: none.  Choices, hashes, histories, trainable sets and exported
-files must be equal.
+files must be equal.  The pruned body: each candidate's features, logits
+and fine-tuned finals within 1e-5 of the masked forward's norm (f32; the
+two add the same products in another order).
 """
 
 import hashlib
@@ -18,6 +22,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from nasrec_tpu.config import OPS_CONFIG_LIB as JAX_OPS
 from nasrec_tpu.models.supernet import SuperNetConfig as JaxSuperNetConfig
@@ -234,3 +239,188 @@ def test_scratch_runs_on_tsv(tsv_data, tmp_path):
         logging_dir=str(tmp_path), log_fn=lambda m: None)
     assert len(out) == 2 and all(np.isfinite(r["test_loss"]) for r in out)
     assert (tmp_path / "from_scratch_results.pickle").exists()
+
+
+# The final-only group's pruned body (search/pruned_body.py) against the
+# masked forward it replaces: vmap(head_features_embedded) over the
+# candidates' masks.  xlarge node indices: 0 linear-2d, 1 dot-product,
+# 2 sigmoid-gating, 3 sum, 4 transformer, 5 linear-3d; xlarge-zeros: 0
+# linear-2d, 1 dot-product, 2 sigmoid-gating, 3 sum, 4 zeros-2d,
+# 5 transformer, 6 zeros-3d, 7 linear-3d.
+
+PRUNE_TOL = 1e-5        # relative to the norm of the masked forward's value
+
+
+def _spec(dense, sparse, left, right, nodes, d=1024, s=64, interact=1, fm=1):
+    return ({"dense_idx": dense, "sparse_idx": sparse, "dense_left_idx": left,
+             "dense_right_idx": right},
+            {"active_nodes": nodes, "dense_in_dims": d, "sparse_in_dims": s,
+             "dense_sparse_interact": interact, "deep_fm": fm})
+
+
+def _choice(*blocks):
+    return {"macro": [b[0] for b in blocks], "micro": [b[1] for b in blocks]}
+
+
+def _sampled(space, nb, seed, k=4):
+    from nasrec_tpu_torch.sampling import ChoiceSampler
+
+    s = ChoiceSampler(OPS_CONFIG_LIB[space], nb, strategy="default",
+                      anypath_choice="binomial-0.5", seed=seed)
+    return [s() for _ in range(k)]
+
+
+def _pruning_cases():
+    from nasrec_tpu_torch.choices import full_path_choice
+
+    return {
+        "sampled-0": ("xlarge", 3, _sampled("xlarge", 3, 0)),
+        "sampled-1": ("xlarge", 3, _sampled("xlarge", 3, 1)),
+        "sampled-2": ("xlarge-zeros", 3, _sampled("xlarge-zeros", 3, 2)),
+        "all-on": ("xlarge", 3, [full_path_choice(OPS_CONFIG_LIB["xlarge"], 3)]
+                   + _sampled("xlarge", 3, 3, k=1)),
+        # the head reads the last two blocks (last_n_blocks_out 2)
+        "last-two-blocks-out": ("xlarge", 3, _sampled("xlarge", 3, 5), 2),
+        # block 1 computes nothing but its deep-fm term and its merge
+        "zeros-only-block": ("xlarge-zeros", 3, [
+            _choice(_spec([0], [0], [0], [0], [0, 7], 256, 32),
+                    _spec([0, 1], [0, 1], [1], [0], [4, 6], 512, 48),
+                    _spec([1, 2], [2], [2], [1], [2, 5], 128, 16)),
+            _choice(_spec([0], [0], [0], [0], [3, 5], 64, 64),
+                    _spec([1], [1], [0], [1], [4, 6], 1024, 16, interact=0, fm=0),
+                    _spec([2], [0, 2], [2], [2], [0, 7], 32, 64))]),
+        # no block reads block 1 (virtual block 2): its GEMMs are all cut
+        "dead-block": ("xlarge", 3, [
+            _choice(_spec([0], [0], [0], [0], [0, 5], 128, 48),
+                    _spec([0, 1], [1], [1], [0], [3, 4], 768, 64),
+                    _spec([0, 1], [0, 1], [1], [0], [2, 5], 512, 32)),
+            _choice(_spec([0], [0], [0], [0], [0, 1, 2, 3, 4, 5]),
+                    _spec([1], [0], [0], [1], [0, 5]),
+                    _spec([1], [1], [0], [0], [0, 1, 4]))]),
+        "interact-and-deep-fm-off": ("xlarge", 3, [
+            _choice(*[_spec(list(range(i + 1)), list(range(i + 1)), [i], [0],
+                            [0, 1, 2, 3, 4, 5], 256 * (i + 1), 16 * (i + 1), 0, 0)
+                      for i in range(3)])]),
+        # left and right read different blocks, each at its own width
+        "disjoint-gating": ("xlarge", 3, [
+            _choice(_spec([0], [0], [0], [0], [0, 2, 5], 64, 16),
+                    _spec([0, 1], [0, 1], [0], [1], [2, 3, 4], 256, 48),
+                    _spec([2], [1, 2], [2], [1], [2, 3, 5], 1024, 64)),
+            _choice(_spec([0], [0], [0], [0], [2, 4], 32, 32),
+                    _spec([1], [0], [1], [0], [2, 5], 16, 64, fm=0),
+                    _spec([0, 2], [2], [0], [2], [2, 3, 4], 768, 16, interact=0))]),
+    }
+
+
+def _pruning_net(space, nb, last_n=1, vocab=40):
+    """A supernet with every bias and LayerNorm offset away from 0, so that a
+    zero input column or a zero-filled GEMM would show."""
+    cfg = SuperNetConfig(space=OPS_CONFIG_LIB[space], num_blocks=nb, num_dense=13,
+                         num_sparse=26, vocab_sizes=(vocab,) * 26, use_layernorm=True,
+                         last_n_blocks_out=last_n)
+    net = supernet_init(cfg, 5, "cpu")
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.add_(0.3 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def _masked_group(net, choices):
+    """A FinalOnlyGroup whose body is the masked forward."""
+    from nasrec_tpu_torch.search.worker import FinalOnlyGroup
+    from nasrec_tpu_torch.train.optim import make_lr_schedule
+
+    group = FinalOnlyGroup(net, choices, make_lr_schedule("cosine", 0.04, 3, 0), 5.0, 1e-2,
+                           "auto")
+
+    @torch.no_grad()
+    def features(dense, cat):
+        stem = net.embedding(cat)
+        return torch.func.vmap(lambda m: net.head_features_embedded(dense, stem, m, "auto"))(
+            group.masks)
+
+    return group, features
+
+
+def _pruning_batches(vocab=40, rows=48, n=4):
+    g = torch.Generator().manual_seed(3)
+    return [(torch.randn(rows, 13, generator=g),
+             torch.randint(0, vocab, (rows, 26), generator=g, dtype=torch.int32),
+             torch.randint(0, 2, (rows, 1), generator=g).float()) for _ in range(n)]
+
+
+def _rel_each(got, want):
+    """The largest over the candidates (axis 0) of |got - want| / |want|."""
+    return max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", sorted(_pruning_cases()))
+def test_pruned_final_only_body_matches_the_masked_forward(case):
+    """The group's pruned features, its logits, and its finals after 3
+    fine-tune steps (then its logits again) against the same group whose
+    body is the masked forward, each candidate within 1e-5 of the norm."""
+    space, nb, choices, *last_n = _pruning_cases()[case]
+    net = _pruning_net(space, nb, *last_n)
+    batches = _pruning_batches()
+    pruned, _ = _masked_group(net, choices)
+    masked, masked_features = _masked_group(net, choices)
+    masked.features = masked_features
+    dense, cat, _ = batches[-1]
+    assert _rel_each(pruned.features(dense, cat), masked_features(dense, cat)) <= PRUNE_TOL
+    assert _rel_each(pruned.logits(dense, cat), masked.logits(dense, cat)) <= PRUNE_TOL
+    for i, batch in enumerate(batches[:3]):
+        pruned.step(*batch, i)
+        masked.step(*batch, i)
+    assert _rel_each(pruned.weight, masked.weight) <= PRUNE_TOL
+    assert _rel_each(pruned.bias, masked.bias) <= PRUNE_TOL
+    assert _rel_each(pruned.logits(dense, cat), masked.logits(dense, cat)) <= PRUNE_TOL
+    if case == "all-on":
+        assert pruned.body.macs_run > pruned.body.macs_masked // 2
+    else:
+        assert pruned.body.macs_run < pruned.body.macs_masked
+
+
+@pytest.mark.parametrize("space", ["xlarge", "xlarge-zeros"])
+def test_pruned_body_calls_the_hand_written_nodes_as_the_masked_forward(space):
+    """Forward hooks on every Transformer and DotProduct: a pruned group's
+    fine-tune step and eval chunk call them as often and in the same order
+    as the masked forward, on the same inputs folded: the masked forward
+    calls each under vmap on one candidate's rows [B, ...] (and its mask
+    [W]), which the kernels' vmap rule folds to one launch over [K B, ...];
+    the pruned body calls each once on the K candidates' rows [K B, ...]
+    (and their masks [K, W]).  So the kernels launch alike, as the search
+    benchmark's kernel bound counts them."""
+    from nasrec_tpu_torch.ops.attention import Transformer
+    from nasrec_tpu_torch.ops.interactions import DotProduct
+
+    net = _pruning_net(space, 3)
+    choices = _sampled(space, 3, 4) + _pruning_cases()["dead-block"][2][:1] * (space == "xlarge")
+    k = len(choices)
+    calls = []
+    for name, mod in net.named_modules():
+        if isinstance(mod, (Transformer, DotProduct)):
+            mod.register_forward_hook(lambda m, args, out, name=name: calls.append(
+                (name, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)),
+                 tuple(out.shape))))
+    seen = []
+    for masked in (False, True):
+        group, features = _masked_group(net, choices)
+        if masked:
+            group.features = features
+        train, test = _pruning_batches(rows=32, n=1)[0], _pruning_batches(rows=64, n=1)[0]
+        group.step(*train, 0)
+        group.logits(*test[:2])
+        seen.append(list(calls))
+        calls.clear()
+
+    def fold(shape):
+        return (k * shape[0],) + shape[1:] if len(shape) > 1 else (k,) + shape
+
+    pruned, masked = seen
+    assert [c[0] for c in pruned] == [c[0] for c in masked]
+    assert len(masked) == 2 * 3 * 2 and {c[1][0][0] for c in masked} == {32, 64}
+    for (_, args, out), (_, margs, mout) in zip(pruned, masked):
+        assert args == tuple(fold(a) for a in margs) and out == fold(mout)

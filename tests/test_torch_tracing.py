@@ -168,6 +168,60 @@ def test_search_group_spans():
     assert all(a.end_ns <= b.start_ns for a, b in zip(got, got[1:]))
 
 
+@pytest.mark.parametrize("which", ["hand-written", "all-on"])
+def test_search_gemm_macs_counters(which):
+    """`search.gemm_macs_run` and `search.gemm_macs_masked` in the group's
+    fine-tune and eval spans: the multiply-adds of the pruned body's cut
+    GEMMs and of the same GEMMs in the masked forward, a forward's rows
+    times each candidate's products, written out here for a 2-block xlarge
+    supernet (block 0: 13 dense columns and 26 slots in; block 1: 13 + 1024
+    and 26 + 64 + 8).  For the all-on choice the two are equal."""
+    from nasrec_tpu_torch.choices import full_path_choice
+    from nasrec_tpu_torch.models.supernet import SuperNetConfig, supernet_init
+    from nasrec_tpu_torch.search.worker import make_candidate_evaluator
+
+    cfg = SuperNetConfig(space=OPS_CONFIG_LIB["xlarge"], num_blocks=2, num_dense=13,
+                         num_sparse=26, vocab_sizes=(40,) * 26)
+    net = supernet_init(cfg, 0, "cpu")
+    d1, s1 = 13 + 1024, 26 + 64 + 8
+    masked = (13 * 1024 + 13 * 1024 + 13 * 13 + 1024 * 13 + 16 * 26 * 64 + 128 * 1024
+              + 1024 * 16
+              + d1 * 1024 + d1 * 1024 + d1 * d1 + 1024 * d1 + 16 * s1 * 64 + 128 * 1024
+              + 1024 * 16)
+    if which == "all-on":
+        choice, run = full_path_choice(cfg.space, 2), masked
+    else:
+        # block 0: linear-2d over the 13 dense inputs at width 64, linear-3d
+        # over the 26 stem slots, the merge on, no deep-fm; block 1:
+        # sigmoid-gating of the dense input (13 columns) by block 0's 64
+        # columns, the transformer, deep-fm on, no merge
+        choice = {"macro": [
+            {"dense_idx": [0], "sparse_idx": [0], "dense_left_idx": [0], "dense_right_idx": [0]},
+            {"dense_idx": [1], "sparse_idx": [0, 1], "dense_left_idx": [0],
+             "dense_right_idx": [1]}],
+            "micro": [
+            {"active_nodes": [0, 5], "dense_in_dims": 64, "sparse_in_dims": 16,
+             "dense_sparse_interact": 1, "deep_fm": 0},
+            {"active_nodes": [2, 4], "dense_in_dims": 128, "sparse_in_dims": 32,
+             "dense_sparse_interact": 0, "deep_fm": 1}]}
+        run = (13 * 1024 + 16 * 26 * 64 + 64 * 128
+               + 64 * 13 + 1024 * 64 + 1024 * 16)
+    g = torch.Generator().manual_seed(0)
+    batch = (torch.randn(32, 13, generator=g), torch.randint(0, 40, (32, 26), generator=g,
+                                                             dtype=torch.int32),
+             torch.randint(0, 2, (32, 1), generator=g).float())
+    ev = make_candidate_evaluator(cfg, net, max_train_steps=2, max_eval_steps=1,
+                                  eval_batch_chunk=16)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ev([choice], lambda: iter([batch]), lambda: iter([batch]))
+    by = _by_name(tracing.spans())
+    for name, rows in (("search.finetune", 2 * 32), ("search.eval", 32)):
+        (span,) = by[name]
+        assert dict(span.counts) == {"search.gemm_macs_run": rows * run,
+                                     "search.gemm_macs_masked": rows * masked}, name
+    assert by["search.group"][0].counts is None
+
+
 def test_tsv_path_spans_and_counts(tmp_path):
     from nasrec_tpu_torch.data.native import binding
     from nasrec_tpu_torch.data.pipeline import batch_iterator, prefetch, shard_paths
